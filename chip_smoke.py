@@ -1,0 +1,339 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit, no result line):
+
+1. build the CUDA kernels of ``vlsat_tpu_torch/csrc`` with nvcc (sm_90a);
+2. hold each kernel against its plain PyTorch twin on the card at the
+   serving path's shapes (node buckets 16 and 64, 32 scenes; the fused
+   PointNet also in its point-chunked v2 configuration): segment-max must be
+   bit-equal, PointNet within rtol 1e-4 / atol 1e-5 (fp32 sums in another
+   order than cuBLAS);
+3. time each kernel, its twin and the one-call library yardstick with CUDA
+   events, and compute each kernel's bound from its shapes;
+4. build the full-width MMGNet (768/512/256, 8 heads, depth 2, 160 objects,
+   26 predicates, fused PointNet) from a seeded torch.Generator;
+5. serve synthetic scenes of 4-40 nodes through ``BatchedServer`` from
+   several client threads, with every launch counter set to 0 just before
+   and read just after; every future must resolve with finite outputs and
+   both kernels must have launched;
+6. re-run a few served scenes through the same weights on the CPU and
+   compare at the model gate (rtol 1e-3, atol 1e-4);
+7. profile one served batch (32 scenes) with torch.profiler: step wall
+   time, device busy time and idle share, and the kernels that take it.
+
+The last lines are a JSON ``kernels`` line, the card's name and power limit
+as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores (data sheet)
+SEED = 0
+BATCH = 32
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of one call on the card, by CUDA events around ``iters``
+    back-to-back calls after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def edge_inputs(rng, n_nodes, dev, full: bool):
+    """B scenes in a bucket of n_nodes: all full (timing) or of random size
+    (empty segments and padded edges)."""
+    from vlsat_tpu_torch.scene import full_edge_index
+
+    e = n_nodes * (n_nodes - 1)
+    ei = np.zeros((BATCH, e, 2), np.int32)
+    em = np.zeros((BATCH, e), bool)
+    for b in range(BATCH):
+        idx = full_edge_index(n_nodes if full else rng.randint(2, n_nodes + 1))
+        ei[b, :len(idx)] = idx
+        em[b, :len(idx)] = True
+    data = rng.randn(BATCH, e, 256).astype(np.float32)
+    return (torch.from_numpy(data).to(dev), torch.from_numpy(ei).to(dev),
+            torch.from_numpy(em).to(dev))
+
+
+def check_segment_max(dev, rng) -> dict:
+    from vlsat_tpu_torch.ops.kernels import segment_max as K
+
+    entry = None
+    for n in (16, 64):
+        for full in (False, True):
+            data, ei, em = edge_inputs(rng, n, dev, full)
+            for target in (0, 1):
+                got = K.segment_max_cuda(data, ei, em, n, target)
+                want = K.segment_max_plain(data, ei, em, n, target)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"segment_max differs from its twin at bucket {n} "
+                         f"(full={full}, target={target}): max abs "
+                         f"{(got - want).abs().max().item()}")
+        # timing on full scenes (every edge valid), target 0 as on the path
+        err = (K.segment_max_cuda(data, ei, em, n) - K.segment_max_plain(data, ei, em, n)
+               ).abs().max().item()
+        seg = torch.where(em, ei[..., 0].long(), n)[..., None].expand(-1, -1, data.shape[-1])
+        zeros = torch.zeros(BATCH, n + 1, data.shape[-1], device=dev)
+        valid = int(em.sum())
+        nbytes = (valid * data.shape[-1] * 4 + ei.numel() * 4 + em.numel()
+                  + BATCH * n * data.shape[-1] * 4)
+        ops = valid * data.shape[-1]
+        row = {
+            "name": "segment_max", "route": "cuda",
+            "source": "vlsat_tpu_torch/csrc/segment_max.cu",
+            "replaces": "vlsat_tpu/ops/pallas/segment_max.py:95",
+            "shape": f"B={BATCH} N={n} E={n * (n - 1)} D={data.shape[-1]}",
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: K.segment_max_cuda(data, ei, em, n)),
+            "plain_ms": cuda_ms(lambda: K.segment_max_plain(data, ei, em, n)),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOPS else "operations",
+            "library_ms": cuda_ms(lambda: zeros.scatter_reduce(
+                1, seg, data, reduce="amax", include_self=False)),
+        }
+        log(f"segment_max bucket {n}: bit-equal to its twin; " + json.dumps(row))
+        if n == 16:
+            entry = row
+    return entry
+
+
+def check_pointnet(dev, rng) -> dict:
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel as K
+
+    dims = (3, 64, 128, 768)
+    ws = [torch.from_numpy((rng.randn(a, b) / np.sqrt(a)).astype(np.float32)).to(dev)
+          for a, b in zip(dims, dims[1:])]
+    bs = [torch.from_numpy((rng.randn(b) * 0.1).astype(np.float32)).to(dev) for b in dims[1:]]
+    entry = None
+    for n in (16, 64):
+        pts = torch.from_numpy((rng.randn(BATCH, n, 128, 3) * 0.5).astype(np.float32)).to(dev)
+        want = K.pointnet_encode_plain(pts, ws, bs)
+        rows = {}
+        for name, fn in (("pointnet_fused", lambda: K.pointnet_encode_fused(pts, ws, bs)),
+                         ("pointnet_fused_v2",
+                          lambda: K.pointnet_encode_fused_v2(pts, ws, bs, p_chunk=16))):
+            got = fn()
+            torch.cuda.synchronize()
+            if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+                fail(f"{name} differs from its twin at bucket {n}: max abs "
+                     f"{(got - want).abs().max().item()}")
+            m = BATCH * n
+            flops = 2 * m * 128 * sum(a * b for a, b in zip(dims, dims[1:]))
+            nbytes = (pts.numel() + sum(w.numel() for w in ws) + sum(b.numel() for b in bs)
+                      + m * dims[-1]) * 4
+            rows[name] = row = {
+                "name": name, "route": "cuda", "source": "vlsat_tpu_torch/csrc/pointnet.cu",
+                "replaces": ("vlsat_tpu/ops/pallas/pointnet_kernel.py:99"
+                             if name == "pointnet_fused"
+                             else "vlsat_tpu/ops/pallas/pointnet_kernel.py:150"),
+                "shape": f"B={BATCH} N={n} P=128 C=3 widths=64,128,768"
+                         + (" p_chunk=16" if name.endswith("v2") else ""),
+                "max_abs_err": (got - want).abs().max().item(),
+                "ms": cuda_ms(fn),
+                "plain_ms": cuda_ms(lambda: K.pointnet_encode_plain(pts, ws, bs)),
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
+                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+                             else "operations"),
+                "library_ms": None,
+            }
+            log(f"{name} bucket {n}: within rtol 1e-4/atol 1e-5 of its twin; "
+                + json.dumps(row))
+        if n == 16:
+            entry = rows["pointnet_fused"]
+    return entry
+
+
+def make_scene(rng, n: int, num_points: int = 128) -> dict:
+    """A synthetic scene: n instances of clustered points, descriptor from
+    the raw points, points zero-meaned per instance."""
+    from vlsat_tpu_torch.ops.descriptor import gen_descriptor
+
+    centers = rng.randn(n, 1, 3).astype(np.float32) * 2.0
+    scales = 0.2 + rng.rand(n, 1, 3).astype(np.float32)
+    pts = centers + rng.randn(n, num_points, 3).astype(np.float32) * scales
+    desc = gen_descriptor(torch.from_numpy(pts)).numpy()
+    return {"obj_points": pts - pts.mean(axis=1, keepdims=True), "descriptor": desc}
+
+
+def serve(model, dev, scenes, clients: int = 4):
+    """Every scene once, from ``clients`` threads; then a closed-loop load
+    run for throughput and latency."""
+    from vlsat_tpu_torch.serving import BatchedServer, bench_server
+
+    results = [None] * len(scenes)
+    errors = []
+
+    def client(i):
+        try:
+            futs = [(k, server.submit(scenes[k])) for k in range(i, len(scenes), clients)]
+            for k, fut in futs:
+                results[k] = fut.result(timeout=300)
+        except Exception as e:  # reported below, fails the run
+            errors.append(e)
+
+    with BatchedServer(model, device=dev, max_batch=BATCH, deadline_ms=5.0) as server:
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or any(t.is_alive() for t in threads):
+            raise RuntimeError(f"serving clients failed: {errors!r}")
+        bench = bench_server(server, scenes, duration_s=8.0, clients=2 * BATCH)
+        torch.cuda.synchronize()
+    return results, bench
+
+
+def profile_forward(model, dev, scenes, reps: int = 5) -> dict:
+    """Where one served batch's time goes: the eval step on the first
+    BATCH scenes (padded to their bucket), under torch.profiler."""
+    from vlsat_tpu_torch.data.wire import encode_wire
+    from vlsat_tpu_torch.scene import collate, full_edge_index, pad_scene, pick_bucket
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    group = scenes[:BATCH]
+    bucket = pick_bucket(max(s["obj_points"].shape[0] for s in group))
+    padded = []
+    for s in group:
+        n = s["obj_points"].shape[0]
+        ei = full_edge_index(n)
+        padded.append(pad_scene(s["obj_points"], s["descriptor"],
+                                np.zeros((n, 512), np.float32), np.zeros(n, np.int32),
+                                ei, np.zeros((len(ei), 26), np.float32), n_max=bucket))
+    batch = encode_wire(collate(padded))
+    step = make_eval_step(model, device=dev)
+    state = model.state_dict()
+    for _ in range(3):
+        step(state, batch)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        for _ in range(reps):
+            step(state, batch)
+            torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3 / reps
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    return {
+        "bucket": bucket, "scenes": len(group), "step_wall_ms": wall_ms,
+        "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
+        "top_kernels": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3 / reps,
+                         "calls": e.count / reps} for e in top],
+    }
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs an NVIDIA card")
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.ops.kernels import build
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+    from vlsat_tpu_torch.serving import BatchedServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+
+    # 1. build
+    t0 = time.monotonic()
+    build.build(["segment_max", "pointnet"])
+    log(f"build: {time.monotonic() - t0:.1f} s for segment_max.cu and pointnet.cu (parallel nvcc)")
+    for name, (secs, out) in build.build_log.items():
+        usage = [l.strip() for l in out.splitlines() if "registers" in l or "spill" in l]
+        log(f"  {name}.cu built in {secs:.1f} s; ptxas: {' | '.join(usage)}")
+
+    # 2-3. kernels against their twins, and times
+    rng = np.random.RandomState(SEED)
+    kernels = [check_segment_max(dev, rng), check_pointnet(dev, rng)]
+
+    # 4. full-width model
+    cfg = MMGNetConfig(fused_pointnet=True)
+    model = build_mmgnet(cfg, device=dev, seed=SEED)
+    srng = np.random.RandomState(SEED + 1)
+    scenes = [make_scene(srng, int(n)) for n in srng.randint(4, 41, size=48)]
+    scenes[0] = make_scene(srng, 40)  # the largest size is always served
+
+    # 5. the main path, with every launch counter at 0 just before
+    segment_max.launches = 0
+    pointnet_kernel.launches = 0
+    t0 = time.monotonic()
+    results, bench = serve(model, dev, scenes)
+    counts = {"segment_max": segment_max.launches, "pointnet_fused": pointnet_kernel.launches}
+    log(f"serving: {len(scenes)} scenes + load run in {time.monotonic() - t0:.1f} s; "
+        f"kernel launches {counts}")
+    for s, r in zip(scenes, results):
+        n = s["obj_points"].shape[0]
+        if r["obj_logits"].shape != (n, cfg.num_obj_classes) or \
+                r["rel_cls"].shape != (n * (n - 1), cfg.num_rel_classes):
+            fail(f"served shapes {r['obj_logits'].shape}, {r['rel_cls'].shape} for n={n}")
+        if not (np.isfinite(r["obj_logits"]).all() and np.isfinite(r["rel_cls"]).all()):
+            fail(f"non-finite served output for a scene of {n} nodes")
+    for name, c in counts.items():
+        if c <= 0:
+            fail(f"the serving run never launched the {name} kernel")
+    for k in kernels:
+        k["launches"] = counts[k["name"]]
+
+    # 6. the same weights on the CPU, scene by scene
+    picks = [0, 1, 2, 3]
+    cpu_server = BatchedServer(model, device="cpu", max_batch=1, pad_to_max=False)
+    with cpu_server:
+        for k in picks:
+            ref = cpu_server.predict(scenes[k], timeout=600)
+            for key in ("obj_logits", "rel_cls"):
+                got = results[k][key]
+                if not np.allclose(got, ref[key], rtol=1e-3, atol=1e-4):
+                    fail(f"{key} of scene {k} ({scenes[k]['obj_points'].shape[0]} nodes) "
+                         f"differs from the CPU run: max abs {np.abs(got - ref[key]).max()}")
+    log(f"served outputs of scenes {picks} match the CPU run (rtol 1e-3, atol 1e-4)")
+
+    # 7. where one batch's time goes
+    log(json.dumps({"profile": profile_forward(model, dev, scenes)}))
+    log(json.dumps({"serving": {**bench, "scenes": len(scenes), "max_batch": BATCH}}))
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                            "kind": torch.cuda.get_device_name(0),
+                                            "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

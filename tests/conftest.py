@@ -39,3 +39,5 @@ def pytest_configure(config):
         "markers",
         "slow: production-shape sharded certification (minutes cold, fast "
         "under the persistent compile cache)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc; skips without one")

@@ -1,0 +1,124 @@
+"""The port's CUDA kernels against their plain twins, on the card.
+
+These tests need an NVIDIA card with nvcc; without one they skip.  This file
+imports no JAX, so it runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -q tests/test_torch_port_cuda.py
+
+Tolerances: segment-max is bit-equal (max picks one of its inputs);
+PointNet rtol 1e-4 / atol 1e-5 (fp32 FMA chains summed in another order than
+cuBLAS); the model rtol 1e-3 / atol 1e-4 (the parity gate).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _edges(rng, B, N, D, dev):
+    from vlsat_tpu_torch.scene import full_edge_index
+
+    E = N * (N - 1)
+    ei = np.zeros((B, E, 2), np.int32)
+    em = np.zeros((B, E), bool)
+    for b in range(B):
+        e = full_edge_index(rng.randint(2, N + 1))
+        ei[b, :len(e)] = e
+        em[b, :len(e)] = True
+    data = rng.randn(B, E, D).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (data, ei, em)]
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 256), (2, 12, 130), (3, 8, 11), (2, 64, 256)])
+@pytest.mark.parametrize("target", [0, 1])
+def test_segment_max_kernel_equals_twin(dev, shape, target):
+    from vlsat_tpu_torch.ops.kernels import segment_max as K
+
+    B, N, D = shape
+    data, ei, em = _edges(np.random.RandomState(sum(shape)), B, N, D, dev)
+    before = K.launches
+    got = K.segment_max(data, ei, em, N, target)
+    assert K.launches == before + 1
+    assert torch.equal(got, K.segment_max_plain(data, ei, em, N, target))
+
+
+def test_segment_max_kernel_negative_and_empty(dev):
+    from vlsat_tpu_torch.ops.kernels.segment_max import segment_max
+
+    ei = torch.tensor([[[0, 1], [0, 2], [2, 0]]], dtype=torch.int32, device=dev)
+    em = torch.tensor([[True, True, False]], device=dev)
+    data = torch.tensor([[[-3.0, -1.0], [-2.0, -5.0], [99.0, 99.0]]], device=dev)
+    got = segment_max(data, ei, em, 3).cpu()
+    assert torch.equal(got[0, 0], torch.tensor([-2.0, -1.0]))
+    assert torch.equal(got[0, 1:], torch.zeros(2, 2))
+
+
+def test_segment_max_kernel_refuses_bad_inputs(dev):
+    from vlsat_tpu_torch.ops.kernels.segment_max import segment_max_cuda
+
+    data, ei, em = _edges(np.random.RandomState(0), 2, 4, 8, dev)
+    with pytest.raises(TypeError):
+        segment_max_cuda(data, ei.long(), em, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_max_cuda(data.transpose(0, 1).contiguous().transpose(0, 1), ei, em, 4)
+
+
+@pytest.mark.parametrize("widths", [(16, 32, 64), (64, 128, 768)])
+@pytest.mark.parametrize("p,p_chunk", [(32, None), (20, None), (128, None),
+                                       (32, 16), (128, 16), (24, 8)])
+def test_pointnet_kernel_matches_twin(dev, widths, p, p_chunk):
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel as K
+
+    rng = np.random.RandomState(p + len(widths))
+    dims = (3, *widths)
+    pts = torch.from_numpy((rng.randn(2, 5, p, 3) * 0.5).astype(np.float32)).to(dev)
+    ws = [torch.from_numpy((rng.randn(a, b) / np.sqrt(a)).astype(np.float32)).to(dev)
+          for a, b in zip(dims, dims[1:])]
+    bs = [torch.from_numpy((rng.randn(b) * 0.1).astype(np.float32)).to(dev) for b in widths]
+    before = K.launches
+    if p_chunk is None:
+        got = K.pointnet_encode_fused(pts, ws, bs)
+    else:
+        got = K.pointnet_encode_fused_v2(pts, ws, bs, p_chunk=p_chunk)
+    assert K.launches == before + 1
+    assert got.shape == (2, 5, widths[-1])
+    torch.testing.assert_close(got, K.pointnet_encode_plain(pts, ws, bs), rtol=1e-4, atol=1e-5)
+
+
+def test_model_on_card_matches_cpu(dev):
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.ops.descriptor import gen_descriptor
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+    from vlsat_tpu_torch.serving import BatchedServer
+
+    cfg = MMGNetConfig(num_obj_classes=20, num_rel_classes=7, point_feature_size=64,
+                       dim_node=64, dim_edge=64, dim_atten=32, num_heads=4,
+                       fused_pointnet=True)
+    model = build_mmgnet(cfg, device=dev, seed=3)
+    rng = np.random.RandomState(0)
+    scenes = []
+    for n in (3, 7, 12):
+        pts = (rng.randn(n, 1, 3) * 2 + rng.randn(n, 32, 3)).astype(np.float32)
+        scenes.append({"obj_points": pts - pts.mean(axis=1, keepdims=True),
+                       "descriptor": gen_descriptor(torch.from_numpy(pts)).numpy()})
+    sm, pn = segment_max.launches, pointnet_kernel.launches
+    with BatchedServer(model, device=dev, max_batch=4, num_rel_classes=7) as gpu:
+        got = [gpu.predict(s) for s in scenes]
+    assert segment_max.launches > sm and pointnet_kernel.launches > pn
+    with BatchedServer(model, device="cpu", max_batch=4, num_rel_classes=7) as cpu:
+        want = [cpu.predict(s) for s in scenes]
+    for g, w in zip(got, want):
+        for key in ("obj_logits", "rel_cls"):
+            np.testing.assert_allclose(g[key], w[key], rtol=1e-3, atol=1e-4, err_msg=key)

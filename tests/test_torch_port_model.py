@@ -1,0 +1,156 @@
+"""The port's 3D-only MMGNet forward against the JAX package's, on bridged
+weights (CPU, fp32).
+
+``flax MMGNet.init`` from a seed -> ``interop.from_flax`` -> the port; both
+run the same ``make_batch`` scenes.  Gate: rtol 1e-3, atol 1e-4, the gate of
+tests/test_parity_torch.py (fp32 sums are taken in another order by XLA and
+by torch across ~30 chained matmuls).  Only live rows are compared.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from vlsat_tpu.data.synthetic import make_batch
+from vlsat_tpu.models import MMGNet as FlaxMMGNet
+from vlsat_tpu.models import MMGNetConfig as FlaxConfig
+from vlsat_tpu_torch.interop.from_flax import flax_to_state_dict, state_dict_to_flax
+from vlsat_tpu_torch.models.mmgnet import MMGNet, MMGNetConfig
+from vlsat_tpu_torch.scene import SceneBatch
+from vlsat_tpu_torch.train.step import make_eval_step
+
+RTOL, ATOL = 1e-3, 1e-4
+
+NARROW = dict(num_obj_classes=20, num_rel_classes=7, point_feature_size=64,
+              dim_node=64, dim_edge=64, dim_atten=32, num_heads=4, clip_feat_dim=64)
+
+
+def port_config(jcfg: FlaxConfig) -> MMGNetConfig:
+    return MMGNetConfig(**{f.name: getattr(jcfg, f.name)
+                           for f in dataclasses.fields(MMGNetConfig)
+                           if hasattr(jcfg, f.name)})
+
+
+def to_torch(batch) -> SceneBatch:
+    kw = {f.name: getattr(batch, f.name) for f in dataclasses.fields(SceneBatch)}
+    return SceneBatch(**{k: None if v is None else torch.from_numpy(np.array(v))
+                         for k, v in kw.items()})
+
+
+@functools.lru_cache(maxsize=None)
+def flax_variables(widths: tuple, seed: int):
+    """Init the flax model (all branches, as training does), then give BN
+    non-trivial running stats so the eval-mode BN path is exercised.  The
+    parameters do not depend on the bucket or on ``fused_pointnet``, so each
+    width is initialised once per module."""
+    jcfg = FlaxConfig(**dict(widths))
+    batch = make_batch(seed=0, node_counts=(3,), num_points=8, bucket=4,
+                       feat_dim=jcfg.clip_feat_dim, num_obj_classes=jcfg.num_obj_classes,
+                       num_rel_classes=jcfg.num_rel_classes)
+    v = FlaxMMGNet(cfg=jcfg).init(
+        {"params": jax.random.PRNGKey(seed), "dropout": jax.random.PRNGKey(seed + 1)},
+        batch, istrain=True)
+    params = jax.tree_util.tree_map(np.asarray, v["params"])
+    stats = jax.tree_util.tree_map(np.asarray, v["batch_stats"])
+    rng = np.random.RandomState(seed + 2)
+    bn = stats["mlp_3d_bn"]
+    bn["mean"] = (rng.randn(*bn["mean"].shape) * 0.5).astype(np.float32)
+    bn["var"] = (rng.rand(*bn["var"].shape) + 0.5).astype(np.float32)
+    return params, stats
+
+
+def assert_live_rows_match(got, want, batch):
+    obj_mask = np.asarray(batch.obj_mask)
+    edge_mask = np.asarray(batch.edge_mask)
+    for key, mask in (("obj_logits_3d", obj_mask), ("rel_cls_3d", edge_mask)):
+        g, w = np.asarray(got[key]), np.asarray(want[key])
+        assert g.shape == w.shape, key
+        assert np.isfinite(g[mask]).all(), key
+        np.testing.assert_allclose(g[mask], w[mask], rtol=RTOL, atol=ATOL, err_msg=key)
+
+
+CASES = {
+    "bucket8": (dict(NARROW), 8, (5, 8), 16),
+    "bucket12": (dict(NARROW), 12, (9, 12), 16),
+    "full_width": ({}, 8, (6, 8), 32),
+}
+
+
+@pytest.mark.parametrize("case,fused", [
+    ("bucket8", False), ("bucket8", True), ("bucket12", False), ("bucket12", True),
+    ("full_width", True)])
+def test_3d_forward_matches_jax(case, fused):
+    widths, bucket, nodes, points = CASES[case]
+    jcfg = FlaxConfig(**widths, fused_pointnet=fused)
+    batch = make_batch(seed=3, node_counts=nodes, num_points=points, bucket=bucket,
+                       feat_dim=jcfg.clip_feat_dim, num_obj_classes=jcfg.num_obj_classes,
+                       num_rel_classes=jcfg.num_rel_classes)
+    params, stats = flax_variables(tuple(widths.items()), seed=5)
+    want = jax.jit(lambda p, s, b: FlaxMMGNet(cfg=jcfg).apply(
+        {"params": p, "batch_stats": s}, b, istrain=False, branch_3d_only=True))(
+        params, stats, batch)
+
+    cfg = port_config(jcfg)
+    state = flax_to_state_dict(params, stats, cfg)
+    model = MMGNet(cfg)
+    step = make_eval_step(model, device="cpu")
+    got = step(state, to_torch(batch))
+    assert_live_rows_match(got, want, batch)
+
+
+def test_bridge_round_trip_is_bit_equal():
+    jcfg = FlaxConfig(**NARROW)
+    params, stats = flax_variables(tuple(NARROW.items()), seed=5)
+    state = flax_to_state_dict(params, stats, port_config(jcfg))
+    back_p, back_s = state_dict_to_flax(state)
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            p = f"{prefix}/{k}"
+            if isinstance(v, dict):
+                yield from leaves(v, p)
+            else:
+                yield p, v
+
+    want_p = {k: v for k, v in leaves(params)
+              if not k.startswith(("/clip_adapter", "/rel_encoder_2d", "/obj_predictor_2d",
+                                   "/rel_predictor_2d", "/triplet_projector_2d",
+                                   "/mmg/cross_attn", "/mmg/gcn_2d"))}
+    got_p = dict(leaves(back_p))
+    assert sorted(got_p) == sorted(want_p)
+    for k, v in want_p.items():
+        assert got_p[k].dtype == v.dtype and got_p[k].shape == v.shape, k
+        np.testing.assert_array_equal(got_p[k], v, err_msg=k)
+    got_s, want_s = dict(leaves(back_s)), dict(leaves(stats))
+    assert sorted(got_s) == sorted(want_s)
+    for k, v in want_s.items():
+        np.testing.assert_array_equal(got_s[k], v, err_msg=k)
+
+
+def test_bridge_rejects_unknown_and_missing_leaves():
+    jcfg = FlaxConfig(**NARROW)
+    params, stats = flax_variables(tuple(NARROW.items()), seed=5)
+    cfg = port_config(jcfg)
+    extra = dict(params, stray_head={"kernel": np.zeros((2, 2), np.float32)})
+    with pytest.raises(KeyError, match="stray_head"):
+        flax_to_state_dict(extra, stats, cfg)
+    missing = {k: v for k, v in params.items() if k != "obj_predictor_3d"}
+    with pytest.raises(KeyError, match="obj_predictor_3d"):
+        flax_to_state_dict(missing, stats, cfg)
+
+
+def test_entry_points_refuse_cuda_without_a_card():
+    from vlsat_tpu_torch.models.mmgnet import build_mmgnet
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_mmgnet(port_config(FlaxConfig(**NARROW)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_eval_step(MMGNet(port_config(FlaxConfig(**NARROW))))

@@ -1,0 +1,140 @@
+"""The port's BatchedServer against the JAX package's, and the port's
+independence from JAX.
+
+Both servers take the same scenes of mixed sizes (two node buckets) on
+bridged weights; per-scene outputs must agree at the model gate (fp32,
+rtol 1e-3, atol 1e-4, as tests/test_parity_torch.py), on the bit-exact f32
+wire and on the default f16 wire (both packages round f32 to f16 the same
+way, so both models see the same inputs).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+from vlsat_tpu.data.synthetic import make_batch, make_scene
+from vlsat_tpu.models import MMGNet as FlaxMMGNet
+from vlsat_tpu.models import MMGNetConfig as FlaxConfig
+from vlsat_tpu.serving import BatchedServer as FlaxServer
+from vlsat_tpu.train.step import make_eval_step as flax_eval_step
+from vlsat_tpu_torch.interop.from_flax import flax_to_state_dict
+from vlsat_tpu_torch.models.mmgnet import MMGNet, MMGNetConfig
+from vlsat_tpu_torch.serving import BatchedServer, bench_server
+
+REPO = Path(__file__).resolve().parents[1]
+RTOL, ATOL = 1e-3, 1e-4
+WIDTHS = dict(num_obj_classes=20, num_rel_classes=7, point_feature_size=64,
+              dim_node=64, dim_edge=64, dim_atten=32, num_heads=4)
+
+
+def _setup():
+    jcfg = FlaxConfig(**WIDTHS, fused_pointnet=True)
+    model = FlaxMMGNet(cfg=jcfg)
+    tiny = make_batch(seed=1, node_counts=(3,), num_points=8, bucket=4,
+                      num_obj_classes=20, num_rel_classes=7)
+    v = model.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+                   tiny, branch_3d_only=True)
+    params = jax.tree_util.tree_map(np.asarray, v["params"])
+    stats = jax.tree_util.tree_map(np.asarray, v["batch_stats"])
+    cfg = MMGNetConfig(**WIDTHS, fused_pointnet=True)
+    return model, params, stats, cfg, flax_to_state_dict(params, stats, cfg)
+
+
+def _scenes():
+    rng = np.random.RandomState(0)
+    out = []
+    for n in (3, 7, 5, 11, 4, 9):  # buckets 4, 8 and 12
+        s = make_scene(rng, n, num_points=16, num_obj_classes=20, num_rel_classes=7)
+        out.append({"obj_points": s["obj_points"], "descriptor": s["descriptor"]})
+    return out
+
+
+def _serve(server, scenes):
+    with server:
+        futs = [server.submit(s) for s in scenes]
+        return [f.result(timeout=120) for f in futs]
+
+
+@pytest.mark.parametrize("wire", ["float32", "float16"])
+def test_port_server_matches_jax_server(monkeypatch, wire):
+    monkeypatch.setenv("VLSAT_WIRE_DTYPE", wire)
+    fmodel, params, stats, cfg, state = _setup()
+    scenes = _scenes()
+    want = _serve(FlaxServer(flax_eval_step(fmodel, branch_3d_only=True), params, stats,
+                             max_batch=4, deadline_ms=50.0, num_rel_classes=7), scenes)
+    server = BatchedServer(MMGNet(cfg), state, device="cpu", max_batch=4,
+                           deadline_ms=50.0, num_rel_classes=7)
+    got = _serve(server, scenes)
+    assert server.stats["scenes"] == len(scenes)
+    assert server.stats["batches"] < len(scenes)
+    for s, g, w in zip(scenes, got, want):
+        n = s["obj_points"].shape[0]
+        assert g["obj_logits"].shape == (n, 20)
+        assert g["rel_cls"].shape == (n * (n - 1), 7)
+        np.testing.assert_array_equal(g["edge_index"], w["edge_index"])
+        for key in ("obj_logits", "rel_cls"):
+            assert np.isfinite(g[key]).all()
+            np.testing.assert_allclose(g[key], w[key], rtol=RTOL, atol=ATOL, err_msg=key)
+
+
+def test_bench_server_reports_rates():
+    _, _, _, cfg, state = _setup()
+    server = BatchedServer(MMGNet(cfg), state, device="cpu", max_batch=4,
+                           deadline_ms=5.0, num_rel_classes=7)
+    with server:
+        res = bench_server(server, _scenes(), duration_s=0.5, clients=3)
+    assert res["requests"] > 0 and res["scenes_per_sec"] > 0
+    assert res["p99_latency_ms"] >= res["p50_latency_ms"] > 0
+
+
+def test_port_imports_without_jax():
+    """With jax, flax and vlsat_tpu blocked, every module of the port
+    imports and serves a scene on the CPU."""
+    code = """
+import sys, importlib, pkgutil
+for name in ("jax", "jaxlib", "flax", "optax", "vlsat_tpu"):
+    sys.modules[name] = None
+import numpy as np
+import vlsat_tpu_torch
+for m in pkgutil.walk_packages(vlsat_tpu_torch.__path__, "vlsat_tpu_torch."):
+    importlib.import_module(m.name)
+from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+from vlsat_tpu_torch.serving import BatchedServer
+cfg = MMGNetConfig(num_obj_classes=5, num_rel_classes=3, point_feature_size=32,
+                   dim_node=32, dim_edge=32, dim_atten=16, num_heads=2, fused_pointnet=True)
+rng = np.random.RandomState(0)
+scene = {"obj_points": rng.randn(3, 8, 3).astype(np.float32),
+         "descriptor": (np.abs(rng.randn(3, 11)) + 0.1).astype(np.float32)}
+with BatchedServer(build_mmgnet(cfg, device="cpu"), device="cpu", max_batch=2,
+                   num_rel_classes=3) as server:
+    out = server.predict(scene)
+assert out["obj_logits"].shape == (3, 5) and np.isfinite(out["rel_cls"]).all()
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "vlsat_tpu")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_port_sources_name_no_jax():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|vlsat_tpu)(\.|\s|$)",
+                         re.MULTILINE)
+    files = sorted((REPO / "vlsat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        hits = pattern.findall(f.read_text())
+        assert not hits, f"{f.relative_to(REPO)} imports {hits}"

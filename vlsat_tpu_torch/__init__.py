@@ -1,0 +1,5 @@
+"""PyTorch/CUDA port of vlsat_tpu (3D-only MMGNet serving path).
+
+Imports torch, numpy and the standard library only; nothing of JAX or of
+the ``vlsat_tpu`` package.
+"""

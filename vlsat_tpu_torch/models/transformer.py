@@ -1,0 +1,62 @@
+"""Post-norm multi-head attention and the distance-bias MLP (counterpart of
+``vlsat_tpu/models/transformer.py:17-52,94-109``).
+
+The JAX package's LayerNorms are flax's, with eps 1e-6 (torch's default is
+1e-5), so every LayerNorm here sets eps=1e-6.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from vlsat_tpu_torch.ops.attention import masked_attention_bnhd
+
+LN_EPS = 1e-6
+
+
+class MultiHeadAttention(nn.Module):
+    """out = LayerNorm(q + Dropout(fc_o(attention(q, k, v)))), head-last
+    layout.  mask: (B, 1|H, Nq, Nk) bool; bias: additive or multiplicative
+    weights broadcastable to (B, H, Nq, Nk)."""
+
+    def __init__(self, num_heads: int, d_model: int, dropout: float = 0.1,
+                 d_in: int | None = None):
+        super().__init__()
+        self.h, self.dk = num_heads, d_model // num_heads
+        d_in = d_in or d_model
+        hd = self.h * self.dk
+        self.fc_q = nn.Linear(d_in, hd)
+        self.fc_k = nn.Linear(d_in, hd)
+        self.fc_v = nn.Linear(d_in, hd)
+        self.fc_o = nn.Linear(hd, d_model)
+        self.drop = nn.Dropout(dropout)
+        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, q, k, v, *, mask=None, bias=None, bias_way="add",
+                q_mask=None, k_mask=None):
+        split = lambda fc, x: fc(x).unflatten(-1, (self.h, self.dk))
+        out = masked_attention_bnhd(split(self.fc_q, q), split(self.fc_k, k),
+                                    split(self.fc_v, v), mask=mask, bias=bias,
+                                    bias_way=bias_way, q_mask=q_mask, k_mask=k_mask)
+        out = self.drop(self.fc_o(out.flatten(-2)))
+        return self.layer_norm(q + out)
+
+
+class DistanceBiasMLP(nn.Module):
+    """[dxyz, dist] (B, N, N, 4) -> per-head additive bias (B, H, N, N):
+    Linear(4, 32), ReLU, LayerNorm, Linear(32, 32), ReLU, LayerNorm,
+    Linear(32, heads)."""
+
+    def __init__(self, num_heads: int):
+        super().__init__()
+        self.fc0 = nn.Linear(4, 32)
+        self.ln0 = nn.LayerNorm(32, eps=LN_EPS)
+        self.fc1 = nn.Linear(32, 32)
+        self.ln1 = nn.LayerNorm(32, eps=LN_EPS)
+        self.fc2 = nn.Linear(32, num_heads)
+
+    def forward(self, w):
+        w = self.ln0(torch.relu(self.fc0(w)))
+        w = self.ln1(torch.relu(self.fc1(w)))
+        return self.fc2(w).movedim(-1, 1)

@@ -1,0 +1,98 @@
+"""Fused three-layer PointNet: CUDA kernel wrapper and its plain twin.
+
+Counterpart of ``vlsat_tpu/ops/pallas/pointnet_kernel.py``:
+``pointnet_encode_fused`` (Pallas call at :99) and
+``pointnet_encode_fused_v2`` (Pallas call at :150).  Both run the one kernel
+of ``vlsat_tpu_torch/csrc/pointnet.cu``; v2 is its point-chunked
+configuration.  The plain twin is ``vlsat_tpu_torch.ops.pointnet``.
+A CPU tensor takes the twin, a CUDA tensor the kernel; there is no fallback
+between them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from vlsat_tpu_torch.ops.kernels import build
+from vlsat_tpu_torch.ops.pointnet import pointnet_encode
+
+# kernel launches by ``pointnet_encode_fused`` and ``_v2`` in this process
+launches = 0
+
+_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+_SIGNATURES = {
+    "pointnet_f32": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+                     ctypes.c_int),
+    "pointnet_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_size_t),
+}
+
+pointnet_encode_plain = pointnet_encode
+
+
+def _launch(pts: torch.Tensor, weights: Sequence[torch.Tensor],
+            biases: Sequence[torch.Tensor], p_chunk: int) -> torch.Tensor:
+    global launches
+    if len(weights) != 3 or len(biases) != 3:
+        raise ValueError("the fused PointNet kernel takes exactly three layers")
+    tensors = [pts, *weights, *biases]
+    if not all(t.is_cuda and t.device == pts.device for t in tensors):
+        raise ValueError("the fused PointNet kernel needs all inputs on one CUDA device")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("the fused PointNet kernel takes float32 inputs")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the fused PointNet kernel needs contiguous inputs")
+    if pts.dim() < 2:
+        raise ValueError(f"pts must be (..., P, C), got {tuple(pts.shape)}")
+    *lead, p, c = pts.shape
+    (w1, w2, w3), (b1, b2, b3) = weights, biases
+    h1, h2, o = w1.shape[1], w2.shape[1], w3.shape[1]
+    if (tuple(w1.shape) != (c, h1) or tuple(w2.shape) != (h1, h2)
+            or tuple(w3.shape) != (h2, o) or tuple(b1.shape) != (h1,)
+            or tuple(b2.shape) != (h2,) or tuple(b3.shape) != (o,)):
+        raise ValueError(
+            f"weights {[tuple(w.shape) for w in weights]} and biases "
+            f"{[tuple(b.shape) for b in biases]} do not chain from C={c}")
+    if p < 1 or p_chunk < 1 or p % p_chunk:
+        raise ValueError(f"P={p} must be a positive multiple of p_chunk={p_chunk}")
+    lib = build.load("pointnet", _SIGNATURES)
+    if lib.pointnet_smem_bytes(c, h1, h2, o, p_chunk) > _SMEM_LIMIT:
+        raise ValueError(f"p_chunk={p_chunk} at widths {c}->{h1}->{h2}->{o} "
+                         "does not fit in shared memory")
+    m = 1
+    for d in lead:
+        m *= d
+    out = torch.empty(m, o, dtype=torch.float32, device=pts.device)
+    stream = torch.cuda.current_stream(pts.device).cuda_stream
+    with torch.cuda.device(pts.device):
+        err = lib.pointnet_f32(
+            pts.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
+            m, p, c, h1, h2, o, p_chunk, stream)
+    build.check(err, "pointnet_f32")
+    launches += 1
+    return out.reshape(*lead, o)
+
+
+def pointnet_encode_fused(pts: torch.Tensor, weights: Sequence[torch.Tensor],
+                          biases: Sequence[torch.Tensor]) -> torch.Tensor:
+    """pts (..., P, C) -> (..., out), weights (in, out).  The whole point
+    set of an instance is one slab (the unchunked kernel)."""
+    if not pts.is_cuda:
+        return pointnet_encode_plain(pts, weights, biases)
+    return _launch(pts, weights, biases, p_chunk=pts.shape[-2])
+
+
+def pointnet_encode_fused_v2(pts: torch.Tensor, weights: Sequence[torch.Tensor],
+                             biases: Sequence[torch.Tensor],
+                             p_chunk: int = 16) -> torch.Tensor:
+    """Point-chunked configuration: layers run on ``p_chunk``-point slabs
+    folded into a running max.  Requires P % p_chunk == 0, as the Pallas
+    v2 kernel does."""
+    if pts.shape[-2] % p_chunk:
+        raise ValueError(f"P={pts.shape[-2]} is not a multiple of p_chunk={p_chunk}")
+    if not pts.is_cuda:
+        return pointnet_encode_plain(pts, weights, biases)
+    return _launch(pts, weights, biases, p_chunk=p_chunk)

@@ -1,0 +1,193 @@
+"""Batched-queue serving loop for scene-graph prediction.
+
+Counterpart of ``vlsat_tpu/serving.py`` (``BatchedServer`` :34-179 and
+``bench_server`` :294-331).  The server micro-batches incoming scenes up to
+``max_batch`` within a ``deadline_ms`` budget, pads them to a shared node
+bucket, narrows the batch to the wire format, runs one eval step and
+resolves each scene's future with its unpadded predictions.  It serves the
+3D-only branch, the JAX server's default (the paper's deployment protocol).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+
+from vlsat_tpu_torch.data.wire import encode_wire
+from vlsat_tpu_torch.device import resolve_device
+from vlsat_tpu_torch.scene import (
+    DEFAULT_NODE_BUCKETS, collate, full_edge_index, pad_scene, pick_bucket)
+from vlsat_tpu_torch.train.step import make_eval_step
+
+
+class BatchedServer:
+    """Micro-batching inference server over ``model``'s eval step
+    (``train.step.make_eval_step``) on ``device``: the card unless the
+    caller passes ``device="cpu"``.
+
+    ``submit`` is thread-safe and returns a Future resolving to
+    ``{"obj_logits": (n, C), "rel_cls": (e, R), "edge_index": (e, 2)}``
+    (numpy arrays) for the scene's n valid instances and e directed edges.
+    ``state`` is a ``state_dict`` for ``model`` (by default its own); it is
+    copied to the device once.
+    """
+
+    def __init__(self, model, state: Optional[Mapping] = None, device=None,
+                 max_batch: int = 32, deadline_ms: float = 5.0,
+                 buckets: Sequence[int] = DEFAULT_NODE_BUCKETS,
+                 feat_dim: int = 512, num_rel_classes: int = 26,
+                 pad_to_max: bool = True):
+        dev = resolve_device(device)
+        self._eval = make_eval_step(model, branch_3d_only=True, device=dev)
+        state = model.state_dict() if state is None else state
+        self._state = {k: v.to(dev) for k, v in state.items()}
+        self.max_batch = max_batch
+        self.deadline_s = deadline_ms / 1e3
+        self.buckets = tuple(buckets)
+        self.feat_dim = feat_dim
+        self.num_rel_classes = num_rel_classes
+        # pad every batch to max_batch scenes (all-masked rows), so each
+        # bucket sees one batch shape
+        self.pad_to_max = pad_to_max
+        self._q: "queue.Queue" = queue.Queue()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.stats = {"scenes": 0, "batches": 0, "batch_size_sum": 0}
+
+    # ------------------------------------------------------------ lifecycle
+    def start(self) -> "BatchedServer":
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    # --------------------------------------------------------------- client
+    def submit(self, scene: Dict[str, np.ndarray]) -> Future:
+        """scene: {"obj_points" (n, P, C) zero-meaned, "descriptor" (n, 11),
+        optional "obj_2d_feats" (n, D2), optional "edge_index" (e, 2),
+        by default the full directed graph}."""
+        fut: Future = Future()
+        self._q.put((scene, fut))
+        return fut
+
+    def predict(self, scene: Dict[str, np.ndarray], timeout: float = 60.0):
+        return self.submit(scene).result(timeout=timeout)
+
+    # --------------------------------------------------------------- worker
+    def _collect(self) -> List:
+        """Block for one request, then take more up to max_batch until the
+        deadline passes."""
+        try:
+            first = self._q.get(timeout=0.1)
+        except queue.Empty:
+            return []
+        items = [first]
+        deadline = time.monotonic() + self.deadline_s
+        while len(items) < self.max_batch:
+            rest = deadline - time.monotonic()
+            if rest <= 0:
+                break
+            try:
+                items.append(self._q.get(timeout=rest))
+            except queue.Empty:
+                break
+        return items
+
+    def _loop(self):
+        while not self._stop.is_set():
+            items = self._collect()
+            if not items:
+                continue
+            try:
+                self._run_batch(items)
+            except Exception as e:  # the clients get the error
+                for _, fut in items:
+                    if not fut.done():
+                        fut.set_exception(e)
+
+    def _run_batch(self, items):
+        scenes, futs = zip(*items)
+        counts = [s["obj_points"].shape[0] for s in scenes]
+        bucket = pick_bucket(max(counts), self.buckets)
+        padded, eis = [], []
+        for s in scenes:
+            n = s["obj_points"].shape[0]
+            ei = np.asarray(s.get("edge_index", full_edge_index(n)), np.int32)
+            eis.append(ei)
+            padded.append(pad_scene(
+                np.asarray(s["obj_points"], np.float32),
+                np.asarray(s["descriptor"], np.float32),
+                np.asarray(s.get("obj_2d_feats",
+                                 np.zeros((n, self.feat_dim), np.float32)), np.float32),
+                np.zeros((n,), np.int32),
+                ei, np.zeros((len(ei), self.num_rel_classes), np.float32),
+                n_max=bucket, feat_dim=self.feat_dim,
+            ))
+        if self.pad_to_max:
+            while len(padded) < self.max_batch:
+                padded.append({k: np.zeros_like(v) for k, v in padded[0].items()})
+        batch = encode_wire(collate(padded))
+        out = self._eval(self._state, batch)
+        ol = out["obj_logits_3d"].cpu().numpy()
+        rc = out["rel_cls_3d"].cpu().numpy()
+        self.stats["scenes"] += len(items)
+        self.stats["batches"] += 1
+        self.stats["batch_size_sum"] += len(items)
+        for k, (fut, n, ei) in enumerate(zip(futs, counts, eis)):
+            fut.set_result({"obj_logits": ol[k, :n], "rel_cls": rc[k, :len(ei)],
+                            "edge_index": ei})
+
+
+def bench_server(server: BatchedServer, scenes: Sequence[dict],
+                 duration_s: float = 5.0, clients: int = 4) -> Dict[str, float]:
+    """Closed-loop load test: ``clients`` threads submit scenes back to back
+    for ``duration_s``; reports sustained scenes/s and per-request latency
+    percentiles (batch formation + device + result distribution)."""
+    lat: List[float] = []
+    lock = threading.Lock()
+    stop = time.monotonic() + duration_s
+    done = [0]
+
+    def client(i):
+        rng = np.random.RandomState(i)
+        local = []
+        while time.monotonic() < stop:
+            s = scenes[int(rng.randint(len(scenes)))]
+            t0 = time.monotonic()
+            server.predict(s)
+            local.append(time.monotonic() - t0)
+        with lock:
+            lat.extend(local)
+            done[0] += len(local)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.monotonic() - t0
+    arr = np.asarray(lat) * 1e3
+    return {
+        "scenes_per_sec": done[0] / wall,
+        "p50_latency_ms": float(np.percentile(arr, 50)) if len(arr) else float("nan"),
+        "p99_latency_ms": float(np.percentile(arr, 99)) if len(arr) else float("nan"),
+        "mean_batch_size": (server.stats["batch_size_sum"] /
+                            max(server.stats["batches"], 1)),
+        "requests": done[0],
+    }
