@@ -6,12 +6,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build the CUDA kernels of ``vlsat_tpu_torch/csrc`` with nvcc (sm_90a);
 2. hold each kernel against its plain PyTorch twin on the card at the
-   serving path's shapes (node buckets 16 and 64, 32 scenes; the fused
+   serving path's shapes (node buckets 16, 48 and 64, 32 scenes; the fused
    PointNet also in its point-chunked v2 configuration): segment-max must be
-   bit-equal, PointNet within rtol 1e-4 / atol 1e-5 (fp32 sums in another
-   order than cuBLAS);
+   bit-equal, PointNet within rtol 1e-4 / atol 1e-5 (3xTF32 products on
+   the tensor cores against cuBLAS fp32);
 3. time each kernel, its twin and the one-call library yardstick with CUDA
-   events, and compute each kernel's bound from its shapes;
+   events, and compute each kernel's bound from its shapes: segment-max by
+   bytes, PointNet by operations at the 3xTF32 rate (three TF32 products
+   per fp32 product at 495 TFLOP/s), with the share of the bound reached;
 4. build the full-width MMGNet (768/512/256, 8 heads, depth 2, 160 objects,
    26 predicates, fused PointNet) from a seeded torch.Generator;
 5. serve synthetic scenes of 4-40 nodes through ``BatchedServer`` from
@@ -40,8 +42,10 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores (data sheet)
+TF32_FLOPS = 495e12        # H100 SXM TF32 tensor cores, dense (data sheet)
 SEED = 0
 BATCH = 32
+BUCKETS = (16, 48, 64)     # node buckets of the kernel phases; serving lands in 48
 
 
 def log(msg: str) -> None:
@@ -86,11 +90,11 @@ def edge_inputs(rng, n_nodes, dev, full: bool):
             torch.from_numpy(em).to(dev))
 
 
-def check_segment_max(dev, rng) -> dict:
+def check_segment_max(dev, rng) -> list:
     from vlsat_tpu_torch.ops.kernels import segment_max as K
 
-    entry = None
-    for n in (16, 64):
+    rows = []
+    for n in BUCKETS:
         for full in (False, True):
             data, ei, em = edge_inputs(rng, n, dev, full)
             for target in (0, 1):
@@ -110,37 +114,43 @@ def check_segment_max(dev, rng) -> dict:
         nbytes = (valid * data.shape[-1] * 4 + ei.numel() * 4 + em.numel()
                   + BATCH * n * data.shape[-1] * 4)
         ops = valid * data.shape[-1]
+        ms = cuda_ms(lambda: K.segment_max_cuda(data, ei, em, n))
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3
         row = {
             "name": "segment_max", "route": "cuda",
             "source": "vlsat_tpu_torch/csrc/segment_max.cu",
             "replaces": "vlsat_tpu/ops/pallas/segment_max.py:95",
-            "shape": f"B={BATCH} N={n} E={n * (n - 1)} D={data.shape[-1]}",
+            "shape": f"B={BATCH} N={n} E={n * (n - 1)} D={data.shape[-1]} "
+                     f"cluster={K.cluster_size(BATCH, data.shape[-1])}",
             "max_abs_err": err,
-            "ms": cuda_ms(lambda: K.segment_max_cuda(data, ei, em, n)),
+            "ms": ms,
             "plain_ms": cuda_ms(lambda: K.segment_max_plain(data, ei, em, n)),
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3,
+            "bound_ms": bound_ms,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOPS else "operations",
+            "bound_rate": "HBM3 at 3.35 TB/s",
+            "share_of_bound": bound_ms / ms,
             "library_ms": cuda_ms(lambda: zeros.scatter_reduce(
                 1, seg, data, reduce="amax", include_self=False)),
         }
         log(f"segment_max bucket {n}: bit-equal to its twin; " + json.dumps(row))
-        if n == 16:
-            entry = row
-    return entry
+        rows.append(row)
+    return rows
 
 
-def check_pointnet(dev, rng) -> dict:
+def check_pointnet(dev, rng) -> list:
     from vlsat_tpu_torch.ops.kernels import pointnet_kernel as K
 
     dims = (3, 64, 128, 768)
-    ws = [torch.from_numpy((rng.randn(a, b) / np.sqrt(a)).astype(np.float32)).to(dev)
+    # weights as nn.Linear holds them, (out, in), passed as (in, out) views
+    # the way the model passes them
+    ws = [torch.from_numpy((rng.randn(b, a) / np.sqrt(a)).astype(np.float32)).to(dev).t()
           for a, b in zip(dims, dims[1:])]
     bs = [torch.from_numpy((rng.randn(b) * 0.1).astype(np.float32)).to(dev) for b in dims[1:]]
-    entry = None
-    for n in (16, 64):
+    rows = []
+    for n in BUCKETS:
         pts = torch.from_numpy((rng.randn(BATCH, n, 128, 3) * 0.5).astype(np.float32)).to(dev)
         want = K.pointnet_encode_plain(pts, ws, bs)
-        rows = {}
+        plain_ms = cuda_ms(lambda: K.pointnet_encode_plain(pts, ws, bs))
         for name, fn in (("pointnet_fused", lambda: K.pointnet_encode_fused(pts, ws, bs)),
                          ("pointnet_fused_v2",
                           lambda: K.pointnet_encode_fused_v2(pts, ws, bs, p_chunk=16))):
@@ -153,7 +163,9 @@ def check_pointnet(dev, rng) -> dict:
             flops = 2 * m * 128 * sum(a * b for a, b in zip(dims, dims[1:]))
             nbytes = (pts.numel() + sum(w.numel() for w in ws) + sum(b.numel() for b in bs)
                       + m * dims[-1]) * 4
-            rows[name] = row = {
+            ms = cuda_ms(fn)
+            bound_ms = max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
+            row = {
                 "name": name, "route": "cuda", "source": "vlsat_tpu_torch/csrc/pointnet.cu",
                 "replaces": ("vlsat_tpu/ops/pallas/pointnet_kernel.py:99"
                              if name == "pointnet_fused"
@@ -161,18 +173,19 @@ def check_pointnet(dev, rng) -> dict:
                 "shape": f"B={BATCH} N={n} P=128 C=3 widths=64,128,768"
                          + (" p_chunk=16" if name.endswith("v2") else ""),
                 "max_abs_err": (got - want).abs().max().item(),
-                "ms": cuda_ms(fn),
-                "plain_ms": cuda_ms(lambda: K.pointnet_encode_plain(pts, ws, bs)),
-                "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
-                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= 3 * flops / TF32_FLOPS
                              else "operations"),
+                "bound_rate": "3xTF32: 3 TF32 products per fp32 product at 495 TFLOP/s",
+                "share_of_bound": bound_ms / ms,
                 "library_ms": None,
             }
             log(f"{name} bucket {n}: within rtol 1e-4/atol 1e-5 of its twin; "
                 + json.dumps(row))
-        if n == 16:
-            entry = rows["pointnet_fused"]
-    return entry
+            rows.append(row)
+    return rows
 
 
 def make_scene(rng, n: int, num_points: int = 128) -> dict:
@@ -282,7 +295,7 @@ def main() -> None:
 
     # 2-3. kernels against their twins, and times
     rng = np.random.RandomState(SEED)
-    kernels = [check_segment_max(dev, rng), check_pointnet(dev, rng)]
+    kernels = check_segment_max(dev, rng) + check_pointnet(dev, rng)
 
     # 4. full-width model
     cfg = MMGNetConfig(fused_pointnet=True)
@@ -294,9 +307,12 @@ def main() -> None:
     # 5. the main path, with every launch counter at 0 just before
     segment_max.launches = 0
     pointnet_kernel.launches = 0
+    pointnet_kernel.launches_v2 = 0
     t0 = time.monotonic()
     results, bench = serve(model, dev, scenes)
-    counts = {"segment_max": segment_max.launches, "pointnet_fused": pointnet_kernel.launches}
+    counts = {"segment_max": segment_max.launches,
+              "pointnet_fused": pointnet_kernel.launches - pointnet_kernel.launches_v2,
+              "pointnet_fused_v2": pointnet_kernel.launches_v2}
     log(f"serving: {len(scenes)} scenes + load run in {time.monotonic() - t0:.1f} s; "
         f"kernel launches {counts}")
     for s, r in zip(scenes, results):
@@ -306,8 +322,8 @@ def main() -> None:
             fail(f"served shapes {r['obj_logits'].shape}, {r['rel_cls'].shape} for n={n}")
         if not (np.isfinite(r["obj_logits"]).all() and np.isfinite(r["rel_cls"]).all()):
             fail(f"non-finite served output for a scene of {n} nodes")
-    for name, c in counts.items():
-        if c <= 0:
+    for name in ("segment_max", "pointnet_fused"):  # v2 is not on the serving path
+        if counts[name] <= 0:
             fail(f"the serving run never launched the {name} kernel")
     for k in kernels:
         k["launches"] = counts[k["name"]]

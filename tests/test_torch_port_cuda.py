@@ -5,9 +5,10 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
-Tolerances: segment-max is bit-equal (max picks one of its inputs);
-PointNet rtol 1e-4 / atol 1e-5 (fp32 FMA chains summed in another order than
-cuBLAS); the model rtol 1e-3 / atol 1e-4 (the parity gate).
+Tolerances: segment-max is bit-equal (max picks one of its inputs; NaN
+where the twin has NaN); PointNet rtol 1e-4 / atol 1e-5 (3xTF32 products on
+the tensor cores against cuBLAS fp32); the model rtol 1e-3 / atol 1e-4 (the
+parity gate).
 """
 
 from __future__ import annotations
@@ -65,6 +66,65 @@ def test_segment_max_kernel_negative_and_empty(dev):
     assert torch.equal(got[0, 1:], torch.zeros(2, 2))
 
 
+def _cluster_case(case, rng, dev):
+    """Inputs that the cluster split of a scene's edges can get wrong."""
+    from vlsat_tpu_torch.scene import full_edge_index
+
+    if case == "long_scene":  # E not a multiple of the slab, stray ids dropped
+        B, N, E = 2, 64, 4001
+        ei = rng.randint(0, N, size=(B, E, 2)).astype(np.int32)
+        ei[0, :5, 0] = [-1, N, N + 7, -3, 2 * N]
+        em = rng.rand(B, E) < 0.9
+    else:
+        B, N = 3, 8
+        ei = np.zeros((B, N * (N - 1), 2), np.int32)
+        em = np.zeros((B, N * (N - 1)), bool)
+        for b in range(B):
+            e = full_edge_index(N)
+            ei[b] = e
+            em[b] = True
+        if case == "few_edges":  # fewer valid edges than blocks in the cluster
+            em[0] = False
+            em[0, [3, 17, 40]] = True
+            em[2] = False
+            em[2, 55] = True
+        elif case == "dead_scene":
+            em[1] = False
+        elif case == "shuffled":
+            for b in range(B):
+                perm = rng.permutation(N * (N - 1))
+                ei[b], em[b] = ei[b, perm], rng.rand(N * (N - 1)) < 0.7
+    data = rng.randn(B, ei.shape[1], 40).astype(np.float32)
+    if case == "nan_inf":
+        data[0, 3, :] = np.nan      # edge (0, 4): node 0 takes NaN
+        data[0, 9, :] = -np.inf     # edge (1, 3)
+        data[0, 7:14, 5] = -np.inf  # every edge of node 1 in channel 5
+    return [torch.from_numpy(a).to(dev) for a in (data, ei, em)] + [N]
+
+
+@pytest.mark.parametrize("case", ["few_edges", "dead_scene", "nan_inf", "shuffled",
+                                  "long_scene"])
+@pytest.mark.parametrize("target", [0, 1])
+def test_segment_max_kernel_cluster_split(dev, case, target):
+    from vlsat_tpu_torch.ops.kernels import segment_max as K
+
+    data, ei, em, N = _cluster_case(case, np.random.RandomState(len(case) + target), dev)
+    before = K.launches
+    got = K.segment_max(data, ei, em, N, target)
+    assert K.launches == before + 1
+    ids = ei[..., target]
+    # the twin takes no out-of-range id; the kernel drops them, as masked edges
+    want = K.segment_max_plain(data, ei, em & (ids >= 0) & (ids < N), N, target)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    if case == "few_edges":
+        assert K.cluster_size(data.shape[0], data.shape[2]) > 3
+    if case == "dead_scene":
+        assert not got[1].any()
+    if case == "nan_inf" and target == 0:
+        assert got[0, 0].isnan().all() and got[0, 1, 5] == -np.inf
+
+
 def test_segment_max_kernel_refuses_bad_inputs(dev):
     from vlsat_tpu_torch.ops.kernels.segment_max import segment_max_cuda
 
@@ -77,7 +137,8 @@ def test_segment_max_kernel_refuses_bad_inputs(dev):
 
 @pytest.mark.parametrize("widths", [(16, 32, 64), (64, 128, 768)])
 @pytest.mark.parametrize("p,p_chunk", [(32, None), (20, None), (128, None),
-                                       (32, 16), (128, 16), (24, 8)])
+                                       (32, 16), (128, 16), (24, 8), (1, None), (24, None),
+                                       (1, 1), (20, 10), (256, 32)])
 def test_pointnet_kernel_matches_twin(dev, widths, p, p_chunk):
     from vlsat_tpu_torch.ops.kernels import pointnet_kernel as K
 
@@ -95,6 +156,59 @@ def test_pointnet_kernel_matches_twin(dev, widths, p, p_chunk):
     assert K.launches == before + 1
     assert got.shape == (2, 5, widths[-1])
     torch.testing.assert_close(got, K.pointnet_encode_plain(pts, ws, bs), rtol=1e-4, atol=1e-5)
+
+
+def _pointnet_inputs(rng, m, p, widths, dev, scale=0.5):
+    dims = (3, *widths)
+    pts = torch.from_numpy((rng.randn(m, p, 3) * scale).astype(np.float32)).to(dev)
+    # weights as nn.Linear holds them, (out, in), handed over as (in, out) views
+    ws = [torch.from_numpy((rng.randn(b, a) / np.sqrt(a)).astype(np.float32)).to(dev).t()
+          for a, b in zip(dims, dims[1:])]
+    bs = [torch.from_numpy((rng.randn(b) * 0.1).astype(np.float32)).to(dev) for b in widths]
+    return pts, ws, bs
+
+
+@pytest.mark.parametrize("m", [1, 3, 37])
+@pytest.mark.parametrize("p,p_chunk", [(128, None), (128, 16), (20, None), (24, 8), (1, None)])
+def test_pointnet_kernel_instance_counts(dev, m, p, p_chunk):
+    """M that does not fill the instances of the last block."""
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel as K
+
+    pts, ws, bs = _pointnet_inputs(np.random.RandomState(m * p), m, p, (64, 128, 768), dev)
+    if p_chunk is None:
+        got = K.pointnet_encode_fused(pts, ws, bs)
+    else:
+        got = K.pointnet_encode_fused_v2(pts, ws, bs, p_chunk=p_chunk)
+    assert got.shape == (m, 768)
+    torch.testing.assert_close(got, K.pointnet_encode_plain(pts, ws, bs), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("widths", [(16, 32, 64), (64, 128, 768)])
+def test_pointnet_kernel_large_inputs(dev, widths):
+    """Points and biases scaled by 1e3: the relative gate holds at large
+    magnitudes.  With the biases scaled as the points are, the encoder is
+    positively homogeneous (out(s x; s b) = s out(x; b)), so the gate in the
+    units of the unscaled problem is rtol 1e-4 / atol 1e-5 * s: an output
+    near 0 comes from cancelling terms of size ~s, and no fp32 sum holds it
+    to 1e-5 absolute."""
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel as K
+
+    scale = 1e3
+    pts, ws, bs = _pointnet_inputs(np.random.RandomState(5), 37, 128, widths, dev,
+                                   scale=0.5 * scale)
+    bs = [b * scale for b in bs]
+    got = K.pointnet_encode_fused(pts, ws, bs)
+    assert got.abs().max() > 1e2
+    torch.testing.assert_close(got, K.pointnet_encode_plain(pts, ws, bs),
+                               rtol=1e-4, atol=1e-5 * scale)
+
+
+def test_pointnet_kernel_refuses_bad_widths(dev):
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel as K
+
+    pts, ws, bs = _pointnet_inputs(np.random.RandomState(0), 2, 16, (16, 36, 64), dev)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        K.pointnet_encode_fused(pts, ws, bs)
 
 
 def test_model_on_card_matches_cpu(dev):

@@ -104,9 +104,10 @@ class PointNetEncoder(nn.Module):
     def forward(self, pts):
         layers = (self.conv1, self.conv2, self.conv3)
         bs = [l.bias for l in layers]
+        ws = [l.weight.t() for l in layers]
         if self.fused and not self.training:
-            return pointnet_encode_fused(pts, [l.weight.t().contiguous() for l in layers], bs)
-        return pointnet_encode(pts, [l.weight.t() for l in layers], bs)
+            return pointnet_encode_fused(pts, ws, bs)
+        return pointnet_encode(pts, ws, bs)
 
 
 class AdapterModel(nn.Module):

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with ``ctypes``.
 Libraries are built at first use into ``vlsat_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.  Nothing here runs
+``.gitignore``), named by a hash of the source, the ``csrc/`` headers it
+includes and the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.  Nothing here runs
 when the module is imported: the CPU tests import every module.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,10 +41,26 @@ def _nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly
+    or through another header, in the order first reached."""
+    found = [CSRC_DIR / f"{name}.cu"]
+    for path in found:
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep not in found:
+                found.append(dep)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> None:

@@ -19,14 +19,16 @@ import torch
 from vlsat_tpu_torch.ops.kernels import build
 from vlsat_tpu_torch.ops.pointnet import pointnet_encode
 
-# kernel launches by ``pointnet_encode_fused`` and ``_v2`` in this process
+# kernel launches by ``pointnet_encode_fused`` and ``_v2`` in this process;
+# ``launches_v2`` counts those of ``pointnet_encode_fused_v2`` alone
 launches = 0
+launches_v2 = 0
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _SIGNATURES = {
     "pointnet_f32": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
                      ctypes.c_int),
-    "pointnet_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_size_t),
+    "pointnet_smem_bytes": ([ctypes.c_int] * 6, ctypes.c_size_t),
 }
 
 pointnet_encode_plain = pointnet_encode
@@ -34,6 +36,9 @@ pointnet_encode_plain = pointnet_encode
 
 def _launch(pts: torch.Tensor, weights: Sequence[torch.Tensor],
             biases: Sequence[torch.Tensor], p_chunk: int) -> torch.Tensor:
+    """weights are (in, out), as the twin takes them; the kernel reads them
+    (out, in), nn.Linear's layout, so ``w.t()`` of a Linear weight costs no
+    copy here."""
     global launches
     if len(weights) != 3 or len(biases) != 3:
         raise ValueError("the fused PointNet kernel takes exactly three layers")
@@ -42,8 +47,8 @@ def _launch(pts: torch.Tensor, weights: Sequence[torch.Tensor],
         raise ValueError("the fused PointNet kernel needs all inputs on one CUDA device")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("the fused PointNet kernel takes float32 inputs")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the fused PointNet kernel needs contiguous inputs")
+    if not (pts.is_contiguous() and all(b.is_contiguous() for b in biases)):
+        raise ValueError("the fused PointNet kernel needs contiguous points and biases")
     if pts.dim() < 2:
         raise ValueError(f"pts must be (..., P, C), got {tuple(pts.shape)}")
     *lead, p, c = pts.shape
@@ -55,12 +60,19 @@ def _launch(pts: torch.Tensor, weights: Sequence[torch.Tensor],
         raise ValueError(
             f"weights {[tuple(w.shape) for w in weights]} and biases "
             f"{[tuple(b.shape) for b in biases]} do not chain from C={c}")
+    if h1 % 8 or h2 % 8 or o % 8:
+        raise ValueError(f"widths {h1}, {h2}, {o} must be multiples of 8 (the MMA tile)")
     if p < 1 or p_chunk < 1 or p % p_chunk:
         raise ValueError(f"P={p} must be a positive multiple of p_chunk={p_chunk}")
     lib = build.load("pointnet", _SIGNATURES)
-    if lib.pointnet_smem_bytes(c, h1, h2, o, p_chunk) > _SMEM_LIMIT:
-        raise ValueError(f"p_chunk={p_chunk} at widths {c}->{h1}->{h2}->{o} "
-                         "does not fit in shared memory")
+    smem = lib.pointnet_smem_bytes(p, c, h1, h2, o, p_chunk)
+    if smem == 0 or smem > _SMEM_LIMIT:
+        raise ValueError(f"widths {c}->{h1}->{h2}->{o} do not fit in shared memory "
+                         "(hidden widths above 128 are not taken)")
+    w1t, w2t, w3t = (w.t().contiguous() for w in weights)
+    if w2t.data_ptr() % 16 or w3t.data_ptr() % 16:
+        raise ValueError("the fused PointNet kernel copies W2 and W3 in 16-byte "
+                         "pieces: their (out, in) storage must be 16-byte aligned")
     m = 1
     for d in lead:
         m *= d
@@ -68,8 +80,8 @@ def _launch(pts: torch.Tensor, weights: Sequence[torch.Tensor],
     stream = torch.cuda.current_stream(pts.device).cuda_stream
     with torch.cuda.device(pts.device):
         err = lib.pointnet_f32(
-            pts.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
+            pts.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
+            b2.data_ptr(), w3t.data_ptr(), b3.data_ptr(), out.data_ptr(),
             m, p, c, h1, h2, o, p_chunk, stream)
     build.check(err, "pointnet_f32")
     launches += 1
@@ -91,8 +103,11 @@ def pointnet_encode_fused_v2(pts: torch.Tensor, weights: Sequence[torch.Tensor],
     """Point-chunked configuration: layers run on ``p_chunk``-point slabs
     folded into a running max.  Requires P % p_chunk == 0, as the Pallas
     v2 kernel does."""
+    global launches_v2
     if pts.shape[-2] % p_chunk:
         raise ValueError(f"P={pts.shape[-2]} is not a multiple of p_chunk={p_chunk}")
     if not pts.is_cuda:
         return pointnet_encode_plain(pts, weights, biases)
-    return _launch(pts, weights, biases, p_chunk=p_chunk)
+    out = _launch(pts, weights, biases, p_chunk=p_chunk)
+    launches_v2 += 1
+    return out

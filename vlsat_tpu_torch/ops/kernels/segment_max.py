@@ -36,11 +36,18 @@ _SIGNATURES = {
     "segment_max_f32": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
                         ctypes.c_int),
     "segment_max_smem_bytes": ([ctypes.c_int], ctypes.c_size_t),
+    "segment_max_cluster_size": ([ctypes.c_int] * 2, ctypes.c_int),
 }
 
 
 def _lib() -> ctypes.CDLL:
     return build.load("segment_max", _SIGNATURES)
+
+
+def cluster_size(batch: int, dim: int) -> int:
+    """Blocks that split each scene's edges in a launch at (B, D) on the
+    current card."""
+    return _lib().segment_max_cluster_size(batch, dim)
 
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
