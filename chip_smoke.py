@@ -23,7 +23,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. re-run a few served scenes through the same weights on the CPU and
    compare at the model gate (rtol 1e-3, atol 1e-4);
 7. profile one served batch (32 scenes) with torch.profiler: step wall
-   time, device busy time and idle share, and the kernels that take it.
+   time, device busy time and idle share, and the kernels that take it;
+8. evaluate: ``eval.engine.evaluate`` with the dual-branch eval step on
+   labelled synthetic splits at B=32 (256 scenes with the node and relation
+   counts of the 3DSSG validation split, buckets 8/12; 32 scenes at bucket
+   48; 32 at bucket 64, which reaches the library attention route), with
+   ``scene_recall`` and a triplet vocabulary: finite metrics, segment-max
+   launched 4 times and the fused PointNet once per batch (counters at 0
+   just before each run), the card's forward equal to a CPU forward at the
+   model gate on two batches, its object and predicate ranks bit-equal to
+   the same rank functions on the CPU (triplet mismatches printed with the
+   margin of the tie that flipped them); scenes/s, wall ms per batch, device
+   busy ms, idle share, top kernels and peak memory per bucket.
 
 The last lines are a JSON ``kernels`` line, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -246,7 +257,7 @@ def profile_forward(model, dev, scenes, reps: int = 5) -> dict:
                                 np.zeros((n, 512), np.float32), np.zeros(n, np.int32),
                                 ei, np.zeros((len(ei), 26), np.float32), n_max=bucket))
     batch = encode_wire(collate(padded))
-    step = make_eval_step(model, device=dev)
+    step = make_eval_step(model, branch_3d_only=True, device=dev)
     state = model.state_dict()
     for _ in range(3):
         step(state, batch)
@@ -267,6 +278,219 @@ def profile_forward(model, dev, scenes, reps: int = 5) -> dict:
         "top_kernels": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3 / reps,
                          "calls": e.count / reps} for e in top],
     }
+
+
+def labelled_splits(seed: int) -> dict:
+    """Host batches of B scenes: "val" has the node and relation counts of
+    256 draws from the 3DSSG validation split (5-9 nodes), grouped by node
+    bucket; "b48" and "b64" hold BATCH scenes of 33-48 and 49-64 nodes."""
+    from vlsat_tpu_torch.data.synthetic import make_scene, validation_scene_stats
+    from vlsat_tpu_torch.scene import collate, edge_count, pad_scene, pick_bucket
+
+    rng = np.random.RandomState(seed)
+    nodes, rels = validation_scene_stats(256, seed=seed)
+    specs = {"val": list(zip(nodes, rels)),
+             "b48": [(int(n), None) for n in rng.randint(33, 49, BATCH)],
+             "b64": [(int(n), None) for n in rng.randint(49, 65, BATCH)]}
+    splits = {}
+    for name, spec in specs.items():
+        scenes = []
+        for n, r in spec:
+            # the split's own label density where it has one
+            density = 0.08 if r is None else min(1.0, r / (edge_count(n) * 26))
+            scenes.append(make_scene(rng, n, rel_density=density))
+        by_bucket: dict = {}
+        for sc in scenes:
+            by_bucket.setdefault(pick_bucket(sc["obj_points"].shape[0]), []).append(sc)
+        batches = []
+        for bucket in sorted(by_bucket):
+            group = by_bucket[bucket]
+            for lo in range(0, len(group), BATCH):
+                batches.append(collate([pad_scene(
+                    sc["obj_points"], sc["descriptor"], sc["obj_2d_feats"], sc["gt_class"],
+                    sc["edge_index"], sc["gt_rels"], n_max=bucket)
+                    for sc in group[lo:lo + BATCH]]))
+        splits[name] = batches
+    return splits
+
+
+def triplet_vocab(batches: list, cap: int = 4096) -> set:
+    """A training vocabulary for a split: the GT triplets of every other
+    scene, up to ``cap`` of them (the engine parses it on every call), so
+    that both zero-shot and non-zero-shot recall are defined."""
+    vocab: set = set()
+    for b in batches:
+        for k in range(0, b.num_scenes, 2):
+            em = b.edge_mask[k].numpy()
+            ei = b.edge_index[k].numpy()[em]
+            cls = b.gt_class[k].numpy()
+            for e, p in zip(*np.nonzero(b.gt_rels[k].numpy()[em] > 0)):
+                if len(vocab) >= cap:
+                    return vocab
+                vocab.add(f"{cls[ei[e, 0]]} {cls[ei[e, 1]]} {p}")
+    return vocab
+
+
+def triplet_margin(out: dict, batch, tag: str, b: int, e: int, k: int) -> float:
+    """How near a tie the rank of GT predicate k on edge e of scene b sits:
+    the least relative gap between the GT cube cell and any other cell
+    (CPU, f32, from the card's outputs)."""
+    probs = torch.softmax(out[f"obj_logits_{tag}"][b].float(), -1)
+    i, j = batch.edge_index[b, e].long().tolist()
+    s, o, r = probs[i], probs[j], out[f"rel_cls_{tag}"][b, e].float()
+    cube = (s[:, None] * o[None, :])[..., None] * r
+    gi, gj = batch.gt_class[b, i].item(), batch.gt_class[b, j].item()
+    thr = (s[gi] * o[gj]) * r[k]
+    gap = ((cube - thr).abs() / thr).flatten()
+    gap[(gi * s.numel() + gj) * r.numel() + k] = float("inf")
+    return gap.min().item()
+
+
+def check_eval_batch(model, state, dev, batch) -> dict:
+    """One batch of the 5-9-node split: the card's forward against a CPU
+    forward of the same weights (model gate), and the card's ranks against
+    the CPU rank functions on the card's own outputs."""
+    from vlsat_tpu_torch.data.wire import encode_wire
+    from vlsat_tpu_torch.eval import metrics as M
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    wire = encode_wire(batch)
+    card = make_eval_step(model, device=dev)(state, wire)
+    cpu_state = {k: v.cpu() for k, v in state.items()}
+    ref = make_eval_step(model, device="cpu")(cpu_state, wire)
+    masks = {"obj": batch.obj_mask, "rel": batch.edge_mask}
+    for key in ("obj_logits_3d", "obj_logits_2d", "rel_cls_3d", "rel_cls_2d"):
+        got, want = card[key].cpu(), ref[key]
+        m = masks[key.split("_")[0]]
+        if not torch.allclose(got[m], want[m], rtol=1e-3, atol=1e-4):
+            fail(f"eval forward {key} differs from the CPU run: max abs "
+                 f"{(got[m] - want[m]).abs().max().item()}")
+    host = {k: v.cpu() for k, v in card.items()}
+    gdev = batch.to(dev)
+    mism = []
+    for tag in ("3d", "2d"):
+        ol, rc = card[f"obj_logits_{tag}"], card[f"rel_cls_{tag}"]
+        if not torch.equal(M.object_ranks(ol, gdev.gt_class).cpu(),
+                           M.object_ranks(host[f"obj_logits_{tag}"], batch.gt_class)):
+            fail(f"object ranks ({tag}) on the card differ from the CPU's")
+        for g, w in zip(M.predicate_rank_parts(rc), M.predicate_rank_parts(host[f"rel_cls_{tag}"])):
+            if not torch.equal(g.cpu(), w):
+                fail(f"predicate ranks ({tag}) on the card differ from the CPU's")
+        tg = M.triplet_rank_parts(ol, gdev.gt_class, rc, gdev.edge_index)[0].cpu()
+        tw = M.triplet_rank_parts(host[f"obj_logits_{tag}"], batch.gt_class,
+                                  host[f"rel_cls_{tag}"], batch.edge_index)[0]
+        live = batch.edge_mask[..., None] & (batch.gt_rels > 0)
+        for b, e, k in torch.nonzero((tg != tw) & live).tolist():
+            mism.append({"branch": tag, "scene": b, "edge": e, "predicate": k,
+                         "card_rank": tg[b, e, k].item(), "cpu_rank": tw[b, e, k].item(),
+                         "margin": triplet_margin(host, batch, tag, b, e, k)})
+    return {"max_abs_diff": {k: (card[k].cpu() - ref[k]).abs().max().item() for k in ref},
+            "triplet_mismatches": len(mism), "triplet_mismatch_examples": mism[:10],
+            "triplet_ranks_checked": int((batch.edge_mask[..., None] & (batch.gt_rels > 0)
+                                          ).sum()) * 2}
+
+
+def profile_eval(step, state, batches) -> dict:
+    """evaluate() over ``batches`` of one bucket under torch.profiler, after
+    a warm-up run: wall and device busy ms per batch, idle share, the top
+    kernels, the attention kernels and the peak memory."""
+    from vlsat_tpu_torch.eval.engine import evaluate
+
+    evaluate(step, state, batches, verbose=False, scene_recall=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        evaluate(step, state, batches, verbose=False, scene_recall=True)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    attn = [e.key[:90] for e in top
+            if any(w in e.key.lower() for w in ("fmha", "attention", "flash", "softmax"))]
+    nb = len(batches)
+    return {"bucket": batches[0].num_nodes, "batches": nb,
+            "scenes": sum(b.num_scenes for b in batches),
+            "wall_ms_per_batch": wall_ms / nb, "device_busy_ms_per_batch": busy_ms / nb,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "kernels_per_batch": sum(e.count for e in kernels) / nb,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "top_kernels": [{"name": e.key[:90], "ms_per_batch": e.self_device_time_total / 1e3 / nb,
+                             "calls_per_batch": e.count / nb} for e in top[:8]],
+            "top_host_ops": [{"name": e.key[:60], "self_ms_per_batch":
+                              e.self_cpu_time_total / 1e3 / nb, "calls_per_batch": e.count / nb}
+                             for e in host[:8]],
+            "attention_kernels": attn[:6]}
+
+
+def evaluation(model, dev, cfg) -> dict:
+    """Phase 8: the evaluation path on the card."""
+    from vlsat_tpu_torch.eval.engine import evaluate
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    t0 = time.monotonic()
+    splits = labelled_splits(SEED + 2)
+    vocabs = {k: triplet_vocab(v) for k, v in splits.items()}
+    log(f"evaluation: splits built in {time.monotonic() - t0:.1f} s: "
+        + ", ".join(f"{k} {sum(b.num_scenes for b in v)} scenes in {len(v)} batches "
+                    f"(buckets {sorted({b.num_nodes for b in v})}, vocabulary of "
+                    f"{len(vocabs[k])} triplets)" for k, v in splits.items()))
+    step = make_eval_step(model, device=dev)
+    state = model.state_dict()
+    kw = dict(num_rel_classes=cfg.num_rel_classes, verbose=False, scene_recall=True)
+    for k, batches in splits.items():  # warm-up: first-call allocations and GEMM choices
+        evaluate(step, state, batches, train_triplet_vocab=vocabs[k], **kw)
+    torch.cuda.synchronize()
+    runs, launches = {}, {"segment_max": 0, "pointnet_fused": 0}
+    # the 5-9-node split twice, for the spread of scenes/s; launches_eval
+    # counts the first pass over each split
+    for name, split in [("val", "val"), ("val_repeat", "val"), ("b48", "b48"), ("b64", "b64")]:
+        batches = splits[split]
+        segment_max.launches = 0
+        pointnet_kernel.launches = 0
+        pointnet_kernel.launches_v2 = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        metrics = evaluate(step, state, batches, train_triplet_vocab=vocabs[split], **kw)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        seg, pn = segment_max.launches, pointnet_kernel.launches
+        nb = len(batches)
+        if seg != 4 * nb or pn != nb or pointnet_kernel.launches_v2:
+            fail(f"evaluation of {name}: {seg} segment-max and {pn} fused PointNet launches "
+                 f"for {nb} batches (want {4 * nb} and {nb})")
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        if bad or len(metrics) < 56:
+            fail(f"evaluation of {name}: {len(metrics)} metrics, non-finite: {bad}")
+        if name != "val_repeat":
+            launches["segment_max"] += seg
+            launches["pointnet_fused"] += pn
+        scenes = sum(b.num_scenes for b in batches)
+        runs[name] = {"scenes": scenes, "batches": nb, "wall_s": wall,
+                      "scenes_per_sec": scenes / wall, "wall_ms_per_batch": wall * 1e3 / nb,
+                      "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches": {"segment_max": seg, "pointnet_fused": pn},
+                      "metrics": metrics}
+        log(f"evaluation of {name}: {scenes} scenes in {wall:.2f} s ({scenes / wall:.1f} "
+            f"scenes/s), {len(metrics)} finite metrics; launches segment-max {seg}, "
+            f"fused PointNet {pn} for {nb} batches")
+
+    checks = [check_eval_batch(model, state, dev, b) for b in splits["val"][:2]]
+    for c in checks:
+        log("evaluation check, card against CPU on one batch of the 5-9-node split: "
+            + json.dumps(c))
+    log("evaluation: card forward within rtol 1e-3/atol 1e-4 of the CPU forward on 2 "
+        "batches; object and predicate ranks bit-equal to the CPU's on the card's outputs")
+    val = splits["val"]
+    groups = [[b for b in val if b.num_nodes == n] for n in sorted({b.num_nodes for b in val})]
+    profiles = [profile_eval(step, state, g) for g in groups + [splits["b48"], splits["b64"]]]
+    return {"runs": runs, "launches": launches, "checks": checks, "profiles": profiles}
 
 
 def main() -> None:
@@ -343,6 +567,12 @@ def main() -> None:
 
     # 7. where one batch's time goes
     log(json.dumps({"profile": profile_forward(model, dev, scenes)}))
+
+    # 8. the evaluation path
+    ev = evaluation(model, dev, cfg)
+    for k in kernels:
+        k["launches_eval"] = ev["launches"].get(k["name"], 0)
+    log(json.dumps({"evaluation": ev}))
     log(json.dumps({"serving": {**bench, "scenes": len(scenes), "max_batch": BATCH}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -236,3 +236,71 @@ def test_model_on_card_matches_cpu(dev):
     for g, w in zip(got, want):
         for key in ("obj_logits", "rel_cls"):
             np.testing.assert_allclose(g[key], w[key], rtol=1e-3, atol=1e-4, err_msg=key)
+
+
+def test_rank_functions_on_card_equal_cpu(dev):
+    """Ranks count strict f32 comparisons of the same products, so the card
+    and the CPU agree bit for bit on the same inputs (triplets on shared
+    probabilities), exact ties included."""
+    from vlsat_tpu_torch.eval import metrics as M
+
+    rng = np.random.RandomState(5)
+    b, n, c, r = 3, 9, 160, 26
+    e = n * (n - 1)
+    logits = torch.from_numpy((np.round(rng.randn(b, n, c) * 4) / 2).astype(np.float32))
+    gt = torch.from_numpy(rng.randint(0, c, (b, n)).astype(np.int32))
+    rel = torch.from_numpy((np.round(rng.rand(b, e, r) * 8) / 8).astype(np.float32))
+    ei = torch.from_numpy(np.stack([rng.randint(0, n, (b, e)), rng.randint(0, n, (b, e))],
+                                   -1).astype(np.int32))
+    gt_rels = torch.from_numpy((rng.rand(b, e, r) < 0.1).astype(np.float32))
+    probs = torch.softmax(logits, -1)
+    on = lambda *xs: [x.to(dev) for x in xs]
+    assert torch.equal(M.object_ranks(*on(logits, gt)).cpu(), M.object_ranks(logits, gt))
+    for g, w in zip(M.predicate_rank_parts(rel.to(dev)), M.predicate_rank_parts(rel)):
+        assert torch.equal(g.cpu(), w)
+    for method in ("topk", "sort"):
+        got = M.triplet_rank_parts_from_probs(*on(probs, gt, rel, ei), chunk=32, method=method)
+        want = M.triplet_rank_parts_from_probs(probs, gt, rel, ei, chunk=32, method=method)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), method
+    cr, ng = want
+    assert torch.equal(M.discounted_ranks_device(*on(cr, ng, gt_rels)).cpu(),
+                       M.discounted_ranks_device(cr, ng, gt_rels))
+    assert torch.equal(M.sorted_gt_preds_device(gt_rels.to(dev)).cpu(),
+                       M.sorted_gt_preds_device(gt_rels))
+
+
+def test_evaluate_on_card_equals_cpu(dev):
+    """evaluate() of the same model outputs on the card (pinned buffers,
+    one copy per batch, event fence) and on the CPU: the same metrics."""
+    from vlsat_tpu_torch.data.synthetic import make_batch
+    from vlsat_tpu_torch.eval.engine import evaluate
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    cfg = MMGNetConfig(num_obj_classes=20, num_rel_classes=7, point_feature_size=64,
+                       dim_node=64, dim_edge=64, dim_atten=32, num_heads=4, clip_feat_dim=64)
+    model = build_mmgnet(cfg, device="cpu", seed=3)
+    batches = [make_batch(seed=s, node_counts=nodes, num_points=16, feat_dim=64,
+                          num_obj_classes=20, num_rel_classes=7)
+               for s, nodes in enumerate([(5, 8, 3), (9, 4), (7, 7, 6, 2)])]
+    cpu_step = make_eval_step(model, device="cpu")
+    outs = [cpu_step(model.state_dict(), b) for b in batches]
+
+    def replay(device):
+        it = iter(outs)
+
+        def step(state, batch):
+            assert batch.gt_class.device.type == torch.device(device).type
+            return {k: v.to(device) for k, v in next(it).items()}
+
+        step.device = device
+        return step
+
+    kw = dict(num_rel_classes=7, verbose=False, scene_recall=True,
+              train_triplet_vocab={"1 2 3", "4 5 6"})
+    got = evaluate(replay(dev), {}, batches, **kw)
+    want = evaluate(replay("cpu"), {}, batches, **kw)
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert (np.isnan(w) and np.isnan(got[k])) or got[k] == w, k

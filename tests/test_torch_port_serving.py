@@ -32,16 +32,16 @@ from vlsat_tpu_torch.serving import BatchedServer, bench_server
 REPO = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-3, 1e-4
 WIDTHS = dict(num_obj_classes=20, num_rel_classes=7, point_feature_size=64,
-              dim_node=64, dim_edge=64, dim_atten=32, num_heads=4)
+              dim_node=64, dim_edge=64, dim_atten=32, num_heads=4, clip_feat_dim=64)
 
 
 def _setup():
     jcfg = FlaxConfig(**WIDTHS, fused_pointnet=True)
     model = FlaxMMGNet(cfg=jcfg)
-    tiny = make_batch(seed=1, node_counts=(3,), num_points=8, bucket=4,
+    tiny = make_batch(seed=1, node_counts=(3,), num_points=8, bucket=4, feat_dim=64,
                       num_obj_classes=20, num_rel_classes=7)
     v = model.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
-                   tiny, branch_3d_only=True)
+                   tiny)
     params = jax.tree_util.tree_map(np.asarray, v["params"])
     stats = jax.tree_util.tree_map(np.asarray, v["batch_stats"])
     cfg = MMGNetConfig(**WIDTHS, fused_pointnet=True)
@@ -97,19 +97,25 @@ def test_bench_server_reports_rates():
 
 def test_port_imports_without_jax():
     """With jax, flax and vlsat_tpu blocked, every module of the port
-    imports and serves a scene on the CPU."""
+    imports (the walk reaches the eval/, utils/ and data/ modules), serves a
+    scene and evaluates two synthetic batches on the CPU."""
     code = """
 import sys, importlib, pkgutil
 for name in ("jax", "jaxlib", "flax", "optax", "vlsat_tpu"):
     sys.modules[name] = None
 import numpy as np
 import vlsat_tpu_torch
-for m in pkgutil.walk_packages(vlsat_tpu_torch.__path__, "vlsat_tpu_torch."):
-    importlib.import_module(m.name)
+walked = [m.name for m in pkgutil.walk_packages(vlsat_tpu_torch.__path__, "vlsat_tpu_torch.")]
+for name in walked:
+    importlib.import_module(name)
+for name in ("eval.engine", "eval.metrics", "eval.recall", "data.pipeline", "data.synthetic",
+             "utils.progbar"):
+    assert "vlsat_tpu_torch." + name in walked, name
 from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
 from vlsat_tpu_torch.serving import BatchedServer
 cfg = MMGNetConfig(num_obj_classes=5, num_rel_classes=3, point_feature_size=32,
-                   dim_node=32, dim_edge=32, dim_atten=16, num_heads=2, fused_pointnet=True)
+                   dim_node=32, dim_edge=32, dim_atten=16, num_heads=2, clip_feat_dim=32,
+                   fused_pointnet=True)
 rng = np.random.RandomState(0)
 scene = {"obj_points": rng.randn(3, 8, 3).astype(np.float32),
          "descriptor": (np.abs(rng.randn(3, 11)) + 0.1).astype(np.float32)}
@@ -117,6 +123,15 @@ with BatchedServer(build_mmgnet(cfg, device="cpu"), device="cpu", max_batch=2,
                    num_rel_classes=3) as server:
     out = server.predict(scene)
 assert out["obj_logits"].shape == (3, 5) and np.isfinite(out["rel_cls"]).all()
+from vlsat_tpu_torch.data.synthetic import make_batch
+from vlsat_tpu_torch.eval.engine import evaluate
+from vlsat_tpu_torch.train.step import make_eval_step
+model = build_mmgnet(cfg, device="cpu")
+batches = [make_batch(seed=s, node_counts=(3, 4), num_points=8, feat_dim=32,
+                      num_obj_classes=5, num_rel_classes=3) for s in range(2)]
+metrics = evaluate(make_eval_step(model, device="cpu"), model.state_dict(), batches,
+                   num_rel_classes=3, verbose=False, scene_recall=True)
+assert "obj_acc_2d_1" in metrics and "sgcls_ngc_recall_20" in metrics
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "vlsat_tpu")
        and sys.modules[m] is not None]
 assert not bad, bad

@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of vlsat_tpu (3D-only MMGNet serving path).
+"""PyTorch/CUDA port of vlsat_tpu (3D-only MMGNet serving, dual-branch evaluation).
 
 Imports torch, numpy and the standard library only; nothing of JAX or of
 the ``vlsat_tpu`` package.

@@ -12,9 +12,9 @@ trees of ``vlsat_tpu.models.MMGNet.init``).  Rules:
   * batch_stats ``mean``/``var`` become ``running_mean``/``running_var``;
   * ``obj_logit_scale`` carries over as is.
 
-The 2D-only subtrees (``_SKIP_2D``) are skipped by name; any other leaf
-that the port's model has no slot for raises, and so does a slot that no
-leaf fills.
+The train-only subtree ``triplet_projector_2d`` (``_SKIP``) is skipped by
+name; any other leaf that the port's model has no slot for raises, and so
+does a slot that no leaf fills.
 """
 
 from __future__ import annotations
@@ -27,9 +27,7 @@ import torch
 
 from vlsat_tpu_torch.models.mmgnet import MMGNet, MMGNetConfig
 
-_SKIP_2D = re.compile(
-    r"^(clip_adapter|rel_encoder_2d|obj_predictor_2d|rel_predictor_2d|triplet_projector_2d"
-    r"|mmg/(cross_attn_\d+|cross_attn_rel_\d+|gcn_2d_\d+))(/|$)")
+_SKIP = re.compile(r"^triplet_projector_2d(/|$)")
 _CHANNEL_DENSE = re.compile(r"(^|/)edgeatten/nn/conv\d+$")
 _PARAM_LEAF = {"scale": "weight", "bias": "bias"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
@@ -66,7 +64,7 @@ def flax_to_state_dict(params: Mapping, batch_stats: Mapping,
         out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
 
     for path, arr in _flatten(params).items():
-        if _SKIP_2D.match(path):
+        if _SKIP.match(path):
             continue
         mod, _, leaf = path.rpartition("/")
         prefix = mod.replace("/", ".") + "." if mod else ""
@@ -81,7 +79,7 @@ def flax_to_state_dict(params: Mapping, batch_stats: Mapping,
         else:
             raise KeyError(f"flax leaf {path!r} is not a known parameter kind")
     for path, arr in _flatten(batch_stats).items():
-        if _SKIP_2D.match(path):
+        if _SKIP.match(path):
             continue
         mod, _, leaf = path.rpartition("/")
         if leaf not in _STAT_LEAF:
@@ -95,7 +93,7 @@ def flax_to_state_dict(params: Mapping, batch_stats: Mapping,
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
                        ) -> Tuple[Dict, Dict]:
-    """The inverse of :func:`flax_to_state_dict` over the 3D parameters:
+    """The inverse of :func:`flax_to_state_dict` over every parameter:
     returns (params, batch_stats) as nested dicts of numpy arrays."""
     params: Dict = {}
     stats: Dict = {}

@@ -1,10 +1,13 @@
-"""MMG graph stack, 3D branch (counterpart of ``vlsat_tpu/models/mmg.py:33-107``
-with ``with_2d=False``, the deployment protocol).
+"""MMG graph stack, dual-branch (counterpart of ``vlsat_tpu/models/mmg.py:33-107``).
 
-Per layer: distance-biased node self-attention, then one
-``GraphEdgeAttenNetwork``; ReLU + dropout between layers (and after the only
-layer when depth == 1).  The 2D cross-attentions and GCNs come with the
-dual-branch slice.
+Per layer: distance-biased 3D node self-attention; 2D node cross-attention
+(q = f2d, k/v = the updated f3d, same node mask and distance bias); one
+``GraphEdgeAttenNetwork`` per branch; then the 2D edges cross-attend to the
+3D edges under the factored ``q_mask``/``k_mask`` pair (the dense (B, 1, E, E)
+mask is never built).  ReLU + dropout between layers (and after the only
+layer when depth == 1), in the f3d, f2d, e3d, e2d order of the JAX module.
+``with_2d=False`` runs the 3D path alone; its outputs equal the 3D outputs
+of the full stack, since the 2D branch only reads the 3D stream.
 """
 
 from __future__ import annotations
@@ -24,20 +27,36 @@ class MMG(nn.Module):
         super().__init__()
         self.depth = depth
         self.self_attn_fc = DistanceBiasMLP(num_heads)
+        gcn = lambda: GraphEdgeAttenNetwork(num_heads, dim_node, dim_edge, dim_atten,
+                                            aggr=aggr, dropout_atten=dropout_atten,
+                                            use_edge=use_edge)
         for i in range(depth):
             self.add_module(f"self_attn_{i}", MultiHeadAttention(num_heads, dim_node))
-            self.add_module(f"gcn_3d_{i}", GraphEdgeAttenNetwork(
-                num_heads, dim_node, dim_edge, dim_atten, aggr=aggr,
-                dropout_atten=dropout_atten, use_edge=use_edge))
+            self.add_module(f"cross_attn_{i}", MultiHeadAttention(num_heads, dim_node))
+            self.add_module(f"gcn_3d_{i}", gcn())
+            self.add_module(f"gcn_2d_{i}", gcn())
+            self.add_module(f"cross_attn_rel_{i}", MultiHeadAttention(num_heads, dim_edge))
         self.drop = nn.Dropout(dropout_atten)
 
-    def forward(self, f3d, e3d, edge_index, obj_mask, edge_mask, obj_center):
+    def forward(self, f3d, f2d, e3d, e2d, edge_index, obj_mask, edge_mask, obj_center,
+                with_2d: bool = True):
         node_mask = obj_mask[:, None, None, :] & obj_mask[:, None, :, None]
         bias = self.self_attn_fc(pairwise_distance_bias(obj_center.detach()))
         for i in range(self.depth):
             f3d = getattr(self, f"self_attn_{i}")(f3d, f3d, f3d, mask=node_mask, bias=bias)
+            if with_2d:
+                f2d = getattr(self, f"cross_attn_{i}")(f2d, f3d, f3d, mask=node_mask,
+                                                      bias=bias)
             f3d, e3d = getattr(self, f"gcn_3d_{i}")(f3d, e3d, edge_index, edge_mask)
+            if with_2d:
+                f2d, e2d = getattr(self, f"gcn_2d_{i}")(f2d, e2d, edge_index, edge_mask)
+                e2d = getattr(self, f"cross_attn_rel_{i}")(e2d, e3d, e3d, q_mask=edge_mask,
+                                                          k_mask=edge_mask)
             if i < self.depth - 1 or self.depth == 1:
                 f3d = self.drop(torch.relu(f3d))
+                if with_2d:
+                    f2d = self.drop(torch.relu(f2d))
                 e3d = self.drop(torch.relu(e3d))
-        return f3d, e3d
+                if with_2d:
+                    e2d = self.drop(torch.relu(e2d))
+        return f3d, f2d, e3d, e2d

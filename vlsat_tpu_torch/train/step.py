@@ -19,21 +19,20 @@ from vlsat_tpu_torch.models.mmgnet import MMGNet
 from vlsat_tpu_torch.scene import SceneBatch
 
 
-def make_eval_step(model: MMGNet, branch_3d_only: bool = True, device=None
+def make_eval_step(model: MMGNet, branch_3d_only: bool = False, device=None
                    ) -> Callable[[Mapping[str, torch.Tensor], SceneBatch],
                                  Dict[str, torch.Tensor]]:
     """Returns ``eval_step(state, batch)``: moves a (wire-encoded) host
     batch to ``device`` (the card unless the caller passes ``device="cpu"``),
     widens it to f32 there and runs the model in eval mode under
     ``torch.inference_mode()`` with the weights of ``state`` (the model's
-    ``state_dict`` keys, on ``device``).
+    ``state_dict`` keys, on ``device``).  The dual-branch forward by default,
+    as in JAX; ``branch_3d_only=True`` is the serving mode.
 
     Full fp32: TF32 is switched off for matmuls and convolutions, as the
     JAX CPU reference computes in fp32."""
     if not isinstance(model, MMGNet):
         raise ValueError(f"make_eval_step takes an MMGNet, got {type(model).__name__}")
-    if not branch_3d_only:
-        raise NotImplementedError("only the 3D-only eval step is ported")
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -43,7 +42,9 @@ def make_eval_step(model: MMGNet, branch_3d_only: bool = True, device=None
                   ) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
             batch = decode_wire(batch.to(dev, non_blocking=True))
-            return torch.func.functional_call(model, dict(state), (batch,),
-                                              strict=True)
+            return torch.func.functional_call(
+                model, dict(state), (batch,), {"branch_3d_only": branch_3d_only},
+                strict=True)
 
+    eval_step.device = dev  # where eval.engine.evaluate sends the batches
     return eval_step
