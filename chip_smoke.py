@@ -34,7 +34,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    model gate on two batches, its object and predicate ranks bit-equal to
    the same rank functions on the CPU (triplet mismatches printed with the
    margin of the tie that flipped them); scenes/s, wall ms per batch, device
-   busy ms, idle share, top kernels and peak memory per bucket.
+   busy ms, idle share, top kernels and peak memory per bucket;
+9. train: ``train.step.make_train_step`` at B=8 with text targets, AdamW at
+   lr 1e-4 with the cosine schedule and the DYNAMIC loss: 20 timed steps on
+   3DSSG-like batches (buckets 8/12) and 3 at bucket 48 (step wall ms,
+   scenes/s, peak memory), torch.profiler over a few more per bucket
+   (device busy ms, idle share), 8 steps on one repeated batch whose loss
+   must fall, and no segment-max or PointNet launch in any train step (the
+   JAX train step runs no Pallas call); one step on the card and on the CPU
+   from identical weights with every dropout off, in fp64 and in fp32
+   (loss rtol 1e-4; every gradient leaf at the gate of
+   tests/test_parity_torch.py, on every element in fp64 and on 99.5 % of
+   each leaf's elements in fp32); the eval-mode gradient of the object
+   encoder through the fused PointNet kernel equal to the plain route's at
+   the fp32 gate.
 
 The last lines are a JSON ``kernels`` line, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -42,6 +55,7 @@ as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -57,6 +71,7 @@ TF32_FLOPS = 495e12        # H100 SXM TF32 tensor cores, dense (data sheet)
 SEED = 0
 BATCH = 32
 BUCKETS = (16, 48, 64)     # node buckets of the kernel phases; serving lands in 48
+TRAIN_BATCH = 8            # the JAX config's Batch_Size
 
 
 def log(msg: str) -> None:
@@ -66,6 +81,15 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
+
+
+def device_kernels(prof) -> list:
+    """The key averages of the work the card ran: CUDA events, without the
+    user annotations (``Optimizer.step#AdamW.step`` spans the GPU timeline
+    of the kernels it issues, which are counted themselves)."""
+    ranges = {e.key for e in prof.events() if getattr(e, "is_user_annotation", False)}
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in ranges]
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -269,7 +293,7 @@ def profile_forward(model, dev, scenes, reps: int = 5) -> dict:
             step(state, batch)
             torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3 / reps
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     return {
@@ -280,36 +304,45 @@ def profile_forward(model, dev, scenes, reps: int = 5) -> dict:
     }
 
 
-def labelled_splits(seed: int) -> dict:
-    """Host batches of B scenes: "val" has the node and relation counts of
-    256 draws from the 3DSSG validation split (5-9 nodes), grouped by node
-    bucket; "b48" and "b64" hold BATCH scenes of 33-48 and 49-64 nodes."""
-    from vlsat_tpu_torch.data.synthetic import make_scene, validation_scene_stats
+def labelled_splits(seed: int, batch: int = BATCH,
+                    large=(("b48", 33, 48, BATCH), ("b64", 49, 64, BATCH)),
+                    with_text: bool = False) -> dict:
+    """Host batches of ``batch`` scenes: "val" has the node and relation
+    counts of 256 draws from the 3DSSG validation split (5-9 nodes), grouped
+    by node bucket; each (name, lo, hi, count) of ``large`` holds ``count``
+    scenes of lo-hi nodes.  ``with_text`` adds unit-norm per-edge text
+    targets (the rel-mimic loss's)."""
+    from vlsat_tpu_torch.data.synthetic import (edge_text_targets, make_scene,
+                                                validation_scene_stats)
     from vlsat_tpu_torch.scene import collate, edge_count, pad_scene, pick_bucket
 
     rng = np.random.RandomState(seed)
     nodes, rels = validation_scene_stats(256, seed=seed)
-    specs = {"val": list(zip(nodes, rels)),
-             "b48": [(int(n), None) for n in rng.randint(33, 49, BATCH)],
-             "b64": [(int(n), None) for n in rng.randint(49, 65, BATCH)]}
+    specs = {"val": list(zip(nodes, rels))}
+    for name, lo, hi, count in large:
+        specs[name] = [(int(n), None) for n in rng.randint(lo, hi + 1, count)]
     splits = {}
     for name, spec in specs.items():
         scenes = []
         for n, r in spec:
             # the split's own label density where it has one
             density = 0.08 if r is None else min(1.0, r / (edge_count(n) * 26))
-            scenes.append(make_scene(rng, n, rel_density=density))
+            sc = make_scene(rng, n, rel_density=density)
+            if with_text:
+                sc["rel_text_feat"] = edge_text_targets(rng, len(sc["edge_index"]))
+            scenes.append(sc)
         by_bucket: dict = {}
         for sc in scenes:
             by_bucket.setdefault(pick_bucket(sc["obj_points"].shape[0]), []).append(sc)
         batches = []
         for bucket in sorted(by_bucket):
             group = by_bucket[bucket]
-            for lo in range(0, len(group), BATCH):
+            for lo in range(0, len(group), batch):
                 batches.append(collate([pad_scene(
                     sc["obj_points"], sc["descriptor"], sc["obj_2d_feats"], sc["gt_class"],
-                    sc["edge_index"], sc["gt_rels"], n_max=bucket)
-                    for sc in group[lo:lo + BATCH]]))
+                    sc["edge_index"], sc["gt_rels"], n_max=bucket,
+                    rel_text_feat=sc.get("rel_text_feat"))
+                    for sc in group[lo:lo + batch]], with_text=with_text))
         splits[name] = batches
     return splits
 
@@ -406,7 +439,7 @@ def profile_eval(step, state, batches) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)
     host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
@@ -493,6 +526,205 @@ def evaluation(model, dev, cfg) -> dict:
     return {"runs": runs, "launches": launches, "checks": checks, "profiles": profiles}
 
 
+def dropout_off(model):
+    from vlsat_tpu_torch.models.layers import Dropout
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return model
+
+
+def grad_gate(got: dict, want: dict, what: str, min_frac: float = 1.0) -> dict:
+    """Each gradient leaf at the gate of tests/test_parity_torch.py:568-575:
+    isclose(rtol 2e-3, atol 2e-3 * max|g| of the leaf, floored at 1e-6 of
+    the largest gradient, since a key bias's gradient is zero up to
+    rounding) on at least ``min_frac`` of its elements.  Fails the run
+    otherwise; returns the worst leaves."""
+    floor = 1e-6 * max(w.abs().max().item() for w in want.values())
+    rows = []
+    for n, w in want.items():
+        g = got[n]
+        scale = max(w.abs().max().item(), floor)
+        ok = torch.isclose(g, w, rtol=2e-3, atol=2e-3 * scale)
+        rows.append({"leaf": n, "inside": ok.double().mean().item(), "outside": int((~ok).sum()),
+                     "max_abs_diff": (g - w).abs().max().item(), "max_abs_grad": scale})
+    rows.sort(key=lambda r: (r["inside"], -r["max_abs_diff"] / r["max_abs_grad"]))
+    if sorted(got) != sorted(want):
+        fail(f"{what}: gradient leaves {sorted(set(got) ^ set(want))} on one side only")
+    if rows[0]["inside"] < min_frac:
+        fail(f"{what}: gradient leaves outside the gate on more than {1 - min_frac:.1%} "
+             f"of their elements: {[r for r in rows if r['inside'] < min_frac]}")
+    return {"leaves": len(rows), "min_frac": min_frac,
+            "leaves_with_elements_outside": sum(r["outside"] > 0 for r in rows),
+            "elements_outside": sum(r["outside"] for r in rows), "worst": rows[:4]}
+
+
+def as_dtype(batch, dtype):
+    return batch.replace(**{f: getattr(batch, f).to(dtype) for f in
+                            ("obj_points", "descriptor", "obj_2d_feats", "gt_rels",
+                             "rel_text_feat")})
+
+
+def grads_of(model, prefix: str = "") -> dict:
+    return {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
+            if p.grad is not None and n.startswith(prefix)}
+
+
+def profile_train(step, state, batches) -> dict:
+    """Train steps over ``batches`` (one bucket): wall ms per step of a run
+    without the profiler, then the same steps under torch.profiler for the
+    device busy ms and the kernels; the idle share is 1 - busy / the
+    unprofiled wall (the profiler slows the host ~2x on small steps)."""
+    walls = []
+    for profiled in (False, True):
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) if profiled else contextlib.nullcontext() \
+                as prof:
+            t0 = time.monotonic()
+            for i, b in enumerate(batches):
+                step(state, b, 100 + i)
+            torch.cuda.synchronize()
+            walls.append((time.monotonic() - t0) * 1e3)
+    kernels = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    n = len(batches)
+    return {"bucket": batches[0].num_nodes, "steps": n, "scenes_per_step": batches[0].num_scenes,
+            "step_wall_ms": walls[0] / n, "profiled_step_wall_ms": walls[1] / n,
+            "device_busy_ms": busy_ms / n, "device_idle_share": 1 - busy_ms / walls[0],
+            "kernels_per_step": sum(e.count for e in kernels) / n,
+            "top_kernels": [{"name": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / n,
+                             "calls_per_step": e.count / n} for e in top]}
+
+
+def training(dev) -> dict:
+    """Phase 9: the training step on the card (full width, B=8, AdamW at
+    lr 1e-4 with the cosine schedule, the DYNAMIC loss with both mimic
+    terms)."""
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+    from vlsat_tpu_torch.train.losses import vlsat_total_loss
+    from vlsat_tpu_torch.train.optim import make_optimizer
+    from vlsat_tpu_torch.train.state import create_train_state
+    from vlsat_tpu_torch.train.step import make_train_step
+
+    cfg = MMGNetConfig(fused_pointnet=True)
+    t0 = time.monotonic()
+    splits = labelled_splits(SEED + 3, batch=TRAIN_BATCH,
+                             large=(("b48", 33, 48, 3 * TRAIN_BATCH),), with_text=True)
+    val, b48 = splits["val"], splits["b48"]
+    log(f"training: {len(val)} batches of the 5-9-node split (buckets "
+        f"{sorted({b.num_nodes for b in val})}) and {len(b48)} at bucket 48, B={TRAIN_BATCH}, "
+        f"built in {time.monotonic() - t0:.1f} s")
+    spec = make_optimizer(lr=1e-4, max_iteration=1000)
+    model = build_mmgnet(cfg, device=dev, seed=SEED + 3)
+    state = create_train_state(model, spec)
+    step = make_train_step(model, spec, device=dev)
+    for b in {b.num_nodes: b for b in val + b48}.values():  # warm-up, one step per shape
+        step(state, b, 0)
+    torch.cuda.synchronize()
+
+    segment_max.launches = 0
+    pointnet_kernel.launches = 0
+    pointnet_kernel.launches_v2 = 0
+    runs = {}
+    for name, batches in (("val", val[:20]), ("b48", b48[:3])):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        losses = []
+        for i, b in enumerate(batches):
+            _, aux = step(state, b, i)
+            losses.append(aux["loss"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        losses = torch.stack(losses).cpu()
+        if not torch.isfinite(losses).all():
+            fail(f"training on {name}: non-finite losses {losses.tolist()}")
+        scenes = sum(b.num_scenes for b in batches)
+        runs[name] = {"steps": len(batches), "scenes": scenes,
+                      "buckets": sorted({b.num_nodes for b in batches}),
+                      "step_wall_ms": wall * 1e3 / len(batches), "scenes_per_sec": scenes / wall,
+                      "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "losses": losses.tolist()}
+        log(f"training on {name}: {len(batches)} steps, {scenes} scenes in {wall:.2f} s "
+            f"({scenes / wall:.1f} scenes/s), peak {runs[name]['peak_memory_gib']:.2f} GiB")
+    groups = [[b for b in val[20:] if b.num_nodes == n] for n in sorted({b.num_nodes for b in val})]
+    profiles = [profile_train(step, state, g[:6]) for g in groups if g]
+    profiles.append(profile_train(step, state, b48[:3]))
+
+    # the loss falls on a repeated fixed batch (tests/test_train_step.py:19-33)
+    fixed = build_mmgnet(cfg, device=dev, seed=SEED + 4)
+    fixed_state = create_train_state(fixed, spec)
+    fixed_step = make_train_step(fixed, spec, device=dev)
+    fixed_losses = [fixed_step(fixed_state, val[0], 0)[1]["loss"] for _ in range(8)]
+    fixed_losses = torch.stack(fixed_losses).cpu().tolist()
+    if not fixed_losses[-1] < fixed_losses[0]:
+        fail(f"training: the loss did not fall over 8 steps on one batch: {fixed_losses}")
+    launches = {"segment_max": segment_max.launches, "pointnet_fused": pointnet_kernel.launches,
+                "pointnet_fused_v2": pointnet_kernel.launches_v2}
+    if any(launches.values()):
+        fail(f"training launched kernels {launches}; the JAX train step runs no Pallas call")
+    log(f"training: loss on one repeated batch {fixed_losses[0]:.4f} -> {fixed_losses[-1]:.4f} "
+        f"in 8 steps; kernel launches in all train steps {launches}")
+
+    # one step on the card and on the CPU from identical weights, dropout off:
+    # in fp64 every element must pass (rounding cannot flip a max there); in
+    # fp32, the path's precision, a near-tie in a max aggregation or a ReLU
+    # decided by rounding moves a few elements (a 1e-7 relative perturbation
+    # of the weights moves the same leaves as much on the CPU), so each leaf
+    # must pass on 99.5 % of its elements, the least fraction that
+    # tests/test_parity_torch.py grants a leaf
+    batch = next(b for b in val if b.num_nodes == 12)
+    card_vs_cpu = {}
+    for dtype, min_frac in ((torch.float64, 1.0), (torch.float32, 0.995)):
+        pair = [dropout_off(build_mmgnet(cfg, device=d, seed=SEED + 5)).to(dtype)
+                for d in (dev, "cpu")]
+        step_losses = []
+        for m, d in zip(pair, (dev, "cpu")):
+            st = create_train_state(m, spec)
+            _, aux = make_train_step(m, spec, device=d)(st, as_dtype(batch, dtype), 0)
+            step_losses.append(aux["loss"].item())
+        tag = str(dtype).split(".")[-1]
+        if not np.isclose(step_losses[0], step_losses[1], rtol=1e-4, atol=0):
+            fail(f"{tag} train step loss on the card {step_losses[0]} != CPU {step_losses[1]} "
+                 "(rtol 1e-4)")
+        gate = grad_gate(grads_of(pair[0]), grads_of(pair[1]),
+                         f"{tag} train step, card against CPU", min_frac)
+        card_vs_cpu[tag] = {"loss": step_losses, "gradients": gate}
+        log(f"training: one {tag} step card against CPU (bucket 12, B={batch.num_scenes}, "
+            f"dropout off): loss {step_losses[0]:.9g} / {step_losses[1]:.9g}; "
+            f"{gate['leaves']} gradient leaves at the gate on >= {min_frac:.1%} of their "
+            f"elements, {gate['elements_outside']} elements outside in "
+            f"{gate['leaves_with_elements_outside']} leaves")
+
+    # eval-mode gradient through the fused PointNet kernel against the plain
+    # route; their forwards differ by the kernel's 3xTF32 rounding, so the
+    # fp32 allowance applies
+    m = pair[0].eval()
+    b = batch.to(dev)
+    enc = {}
+    for fused in (True, False):
+        m.obj_encoder.fused = fused
+        m.zero_grad(set_to_none=True)
+        before = pointnet_kernel.launches
+        vlsat_total_loss(m(b, istrain=True), b)[0].backward()
+        if pointnet_kernel.launches != before + int(fused):
+            fail(f"eval-mode gradient run (fused={fused}) launched "
+                 f"{pointnet_kernel.launches - before} fused PointNet kernels")
+        enc[fused] = grads_of(m, "obj_encoder.")
+    if sorted(enc[True]) != sorted(enc[False]) or not enc[False]:
+        fail(f"eval-mode gradients reach {sorted(enc[True])} through the kernel, "
+             f"{sorted(enc[False])} through the plain chain")
+    enc_gate = grad_gate(enc[True], enc[False], "eval-mode obj_encoder gradient, kernel route",
+                         0.995)
+    log(f"training: eval-mode obj_encoder gradients through the fused kernel equal the plain "
+        f"route's at the gate: {json.dumps(enc_gate)}")
+    return {"runs": runs, "profiles": profiles, "fixed_batch_losses": fixed_losses,
+            "launches": launches, "card_vs_cpu": card_vs_cpu, "fused_encoder_grads": enc_gate}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs an NVIDIA card")
@@ -574,6 +806,12 @@ def main() -> None:
         k["launches_eval"] = ev["launches"].get(k["name"], 0)
     log(json.dumps({"evaluation": ev}))
     log(json.dumps({"serving": {**bench, "scenes": len(scenes), "max_batch": BATCH}}))
+
+    # 9. the training step
+    tr = training(dev)
+    for k in kernels:
+        k["launches_train"] = tr["launches"].get(k["name"], 0)
+    log(json.dumps({"training": tr}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,8 +7,11 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 
 Tolerances: segment-max is bit-equal (max picks one of its inputs; NaN
 where the twin has NaN); PointNet rtol 1e-4 / atol 1e-5 (3xTF32 products on
-the tensor cores against cuBLAS fp32); the model rtol 1e-3 / atol 1e-4 (the
-parity gate).
+the tensor cores against cuBLAS fp32), its gradients equal to the twin's
+(the backward is the twin's at the same primal); the model rtol 1e-3 / atol
+1e-4 (the parity gate); a train step's loss rtol 1e-4 against the CPU and
+its gradients per leaf at the gate of tests/test_parity_torch.py:568-575
+(rtol 2e-3, atol 2e-3 * max|g|).
 """
 
 from __future__ import annotations
@@ -304,3 +307,111 @@ def test_evaluate_on_card_equals_cpu(dev):
     assert sorted(got) == sorted(want)
     for k, w in want.items():
         assert (np.isnan(w) and np.isnan(got[k])) or got[k] == w, k
+
+
+@pytest.mark.parametrize("p_chunk", [None, 16])
+def test_pointnet_kernel_gradients_equal_twin(dev, p_chunk):
+    """The kernel route is differentiable: points, weights and biases get
+    the twin's gradients (re-derived through the twin at the same primal)."""
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel as K
+
+    rng = np.random.RandomState(9)
+    pts, ws, bs = _pointnet_inputs(rng, 37, 128, (64, 128, 768), dev)
+    r = torch.from_numpy(rng.randn(37, 768).astype(np.float32)).to(dev)
+    grads = []
+    for fn in (K.pointnet_encode_fused if p_chunk is None else
+               lambda *a: K.pointnet_encode_fused_v2(*a, p_chunk=p_chunk),
+               K.pointnet_encode_plain):
+        xs = [t.detach().clone().requires_grad_() for t in (pts, *ws, *bs)]
+        before = K.launches
+        out = fn(xs[0], xs[1:4], xs[4:])
+        assert out.grad_fn is not None
+        (out * r).sum().backward()
+        grads.append([x.grad for x in xs])
+        if fn is K.pointnet_encode_plain:
+            assert K.launches == before
+        else:
+            assert K.launches == before + 1
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _narrow_train_setup(dev, seed=3):
+    from vlsat_tpu_torch.data.synthetic import make_batch
+    from vlsat_tpu_torch.models.layers import Dropout
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+
+    cfg = MMGNetConfig(num_obj_classes=20, num_rel_classes=7, point_feature_size=64,
+                       dim_node=64, dim_edge=64, dim_atten=32, num_heads=4, clip_feat_dim=64,
+                       fused_pointnet=True)
+    batch = make_batch(seed=seed, node_counts=(9, 12, 5), num_points=32, feat_dim=64,
+                       num_obj_classes=20, num_rel_classes=7)
+    g = torch.Generator().manual_seed(seed)
+    text = torch.nn.functional.normalize(torch.randn(*batch.edge_mask.shape, 512, generator=g),
+                                         dim=-1)
+    batch = batch.replace(rel_text_feat=text * batch.edge_mask[..., None])
+    models = [build_mmgnet(cfg, device=d, seed=seed) for d in (dev, "cpu")]
+    for m in models:
+        for mod in m.modules():
+            if isinstance(mod, Dropout):
+                mod.p = 0.0
+    return models, batch
+
+
+def _assert_grads_at_gate(got_model, want_model):
+    """Per leaf, max|g| floored at 1e-6 of the largest gradient (a key
+    bias's gradient is zero up to fp32 noise)."""
+    floor = 1e-6 * max(q.grad.abs().max().item() for q in want_model.parameters()
+                       if q.grad is not None)
+    for (n, p), (_, q) in zip(got_model.named_parameters(), want_model.named_parameters()):
+        if q.grad is None:
+            assert p.grad is None, n
+            continue
+        g, w = p.grad.cpu(), q.grad.cpu()
+        scale = max(w.abs().max().item(), floor)
+        assert torch.isclose(g, w, rtol=2e-3, atol=2e-3 * scale).all(), \
+            (n, (g - w).abs().max().item())
+
+
+def test_eval_mode_gradients_through_fused_encoder(dev):
+    """model.eval() with istrain=True (JAX's istrain=True, deterministic=True)
+    on the card: the object encoder runs the fused kernel and gets the same
+    gradients as the plain route."""
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel
+    from vlsat_tpu_torch.train.losses import vlsat_total_loss
+
+    (model, _), batch = _narrow_train_setup(dev)
+    b = batch.to(dev)
+    grads = {}
+    for fused in (True, False):
+        model.obj_encoder.fused = fused
+        model.zero_grad(set_to_none=True)
+        before = pointnet_kernel.launches
+        vlsat_total_loss(model.eval()(b, istrain=True), b)[0].backward()
+        assert pointnet_kernel.launches == before + int(fused)
+        grads[fused] = {n: p.grad.clone() for n, p in model.obj_encoder.named_parameters()}
+    for n, w in grads[False].items():
+        assert w.abs().max() > 0, n
+        scale = w.abs().max().item()
+        assert torch.isclose(grads[True][n], w, rtol=2e-3, atol=2e-3 * scale).all(), n
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One train step from identical weights, every dropout off: loss and
+    every gradient leaf against the CPU; no kernel launches in training."""
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+    from vlsat_tpu_torch.train.optim import make_optimizer
+    from vlsat_tpu_torch.train.state import create_train_state
+    from vlsat_tpu_torch.train.step import make_train_step
+
+    models, batch = _narrow_train_setup(dev)
+    spec = make_optimizer(lr=1e-4, max_iteration=100)
+    losses = []
+    counts = (segment_max.launches, pointnet_kernel.launches)
+    for m, d in zip(models, (dev, "cpu")):
+        state = create_train_state(m, spec)
+        _, aux = make_train_step(m, spec, device=d)(state, batch, 0)
+        losses.append(aux["loss"].item())
+    assert (segment_max.launches, pointnet_kernel.launches) == counts
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+    _assert_grads_at_gate(*models)

@@ -118,9 +118,10 @@ def test_bridge_round_trip_is_bit_equal():
             else:
                 yield p, v
 
-    # every leaf but the train-only triplet projector, the 2D subtrees included
-    want_p = {k: v for k, v in leaves(params) if not k.startswith("/triplet_projector_2d")}
+    # every leaf, the 2D subtrees and the train-time triplet projector included
+    want_p = dict(leaves(params))
     assert any(k.startswith("/mmg/cross_attn_rel_") for k in want_p)
+    assert any(k.startswith("/triplet_projector_2d/") for k in want_p)
     got_p = dict(leaves(back_p))
     assert sorted(got_p) == sorted(want_p)
     for k, v in want_p.items():

@@ -40,8 +40,9 @@ def _setup():
     model = FlaxMMGNet(cfg=jcfg)
     tiny = make_batch(seed=1, node_counts=(3,), num_points=8, bucket=4, feat_dim=64,
                       num_obj_classes=20, num_rel_classes=7)
+    # an istrain init holds every leaf the port's model has (the triplet projector)
     v = model.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
-                   tiny)
+                   tiny, istrain=True)
     params = jax.tree_util.tree_map(np.asarray, v["params"])
     stats = jax.tree_util.tree_map(np.asarray, v["batch_stats"])
     cfg = MMGNetConfig(**WIDTHS, fused_pointnet=True)
@@ -97,8 +98,9 @@ def test_bench_server_reports_rates():
 
 def test_port_imports_without_jax():
     """With jax, flax and vlsat_tpu blocked, every module of the port
-    imports (the walk reaches the eval/, utils/ and data/ modules), serves a
-    scene and evaluates two synthetic batches on the CPU."""
+    imports (the walk reaches the eval/, train/, utils/ and data/ modules),
+    serves a scene, evaluates two synthetic batches and takes two train
+    steps with a checkpoint on the CPU."""
     code = """
 import sys, importlib, pkgutil
 for name in ("jax", "jaxlib", "flax", "optax", "vlsat_tpu"):
@@ -109,7 +111,8 @@ walked = [m.name for m in pkgutil.walk_packages(vlsat_tpu_torch.__path__, "vlsat
 for name in walked:
     importlib.import_module(name)
 for name in ("eval.engine", "eval.metrics", "eval.recall", "data.pipeline", "data.synthetic",
-             "utils.progbar"):
+             "utils.progbar", "utils.seeding", "train.losses", "train.optim", "train.state",
+             "train.step", "train.checkpoint", "interop.from_flax"):
     assert "vlsat_tpu_torch." + name in walked, name
 from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
 from vlsat_tpu_torch.serving import BatchedServer
@@ -132,6 +135,22 @@ batches = [make_batch(seed=s, node_counts=(3, 4), num_points=8, feat_dim=32,
 metrics = evaluate(make_eval_step(model, device="cpu"), model.state_dict(), batches,
                    num_rel_classes=3, verbose=False, scene_recall=True)
 assert "obj_acc_2d_1" in metrics and "sgcls_ngc_recall_20" in metrics
+import tempfile
+from vlsat_tpu_torch.train.checkpoint import CheckpointManager
+from vlsat_tpu_torch.train.optim import make_optimizer
+from vlsat_tpu_torch.train.state import create_train_state
+from vlsat_tpu_torch.train.step import make_train_step
+spec = make_optimizer(lr=1e-3, max_iteration=10)
+state = create_train_state(model, spec)
+step = make_train_step(model, spec, device="cpu")
+batch = make_batch(seed=5, node_counts=(3, 4), num_points=8, feat_dim=32, num_obj_classes=5,
+                   num_rel_classes=3)
+for i in range(2):
+    state, aux = step(state, batch, i)
+assert state.step == 2 and bool(aux["loss"].isfinite())
+with tempfile.TemporaryDirectory() as d:
+    CheckpointManager(d).save(state, eva_res=0.5)
+    assert CheckpointManager(d).restore(state, best=True).step == 2
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "vlsat_tpu")
        and sys.modules[m] is not None]
 assert not bad, bad

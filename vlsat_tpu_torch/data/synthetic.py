@@ -2,7 +2,8 @@
 ``vlsat_tpu/data/synthetic.py:26-70,207-232``).
 
 Scenes have clustered point sets per instance, the full directed edge set
-and sparse multi-hot predicates; the numpy draws are those of the JAX
+and sparse multi-hot predicates (and, with ``with_text``, unit-norm per-edge
+text targets for the rel-mimic loss); the numpy draws are those of the JAX
 package for the same seed, and the descriptor comes from the port's
 ``gen_descriptor``.
 """
@@ -57,16 +58,27 @@ def validation_scene_stats(num_scans: int, seed: int = 0) -> tuple:
     return [n for n, _ in picks], [r for _, r in picks]
 
 
+def edge_text_targets(rng: np.random.RandomState, num_edges: int,
+                      feat_dim: int = 512) -> np.ndarray:
+    """(num_edges, feat_dim) unit-norm stand-ins for the CLIP text embeddings
+    of each edge's GT triplet sentence (synthetic.py:221-224)."""
+    t = rng.randn(num_edges, feat_dim).astype(np.float32)
+    return t / np.linalg.norm(t, axis=-1, keepdims=True)
+
+
 def make_batch(seed: int = 0, node_counts=(5, 9), num_points: int = 128,
-               bucket: int | None = None, feat_dim: int = 512, **kw) -> SceneBatch:
+               bucket: int | None = None, feat_dim: int = 512, with_text: bool = False,
+               **kw) -> SceneBatch:
     """A host SceneBatch of ``make_scene`` scenes padded to ``bucket`` (by
-    default the bucket of the largest scene)."""
+    default the bucket of the largest scene); ``with_text`` adds
+    ``rel_text_feat`` targets of ``feat_dim`` channels."""
     rng = np.random.RandomState(seed)
     n_max = bucket or pick_bucket(max(node_counts))
     scenes = []
     for n in node_counts:
         s = make_scene(rng, n, num_points=num_points, feat_dim=feat_dim, **kw)
+        text = edge_text_targets(rng, len(s["edge_index"]), feat_dim) if with_text else None
         scenes.append(pad_scene(s["obj_points"], s["descriptor"], s["obj_2d_feats"],
                                 s["gt_class"], s["edge_index"], s["gt_rels"], n_max=n_max,
-                                feat_dim=feat_dim))
-    return collate(scenes)
+                                rel_text_feat=text, feat_dim=feat_dim))
+    return collate(scenes, with_text=with_text)

@@ -42,9 +42,10 @@ class FatEdgeAttention(nn.Module):
             c_in, feats = self.d_n, [2 * self.d_n, self.d_o]
         self.nn = HeadMLP(c_in, feats, dropout=dropout_atten)
 
-    def forward(self, x_i, edge, x_j, nn_edge_nodes):
+    def forward(self, x_i, edge, x_j, nn_edge_nodes, rng=None):
         """``nn_edge_nodes``: (proj_i, proj_j), the node-side parts of the
-        first nn_edge layer, supplied by the caller."""
+        first nn_edge layer, supplied by the caller; ``rng`` draws the gate
+        MLP's dropout mask in training mode."""
         pi, pj = nn_edge_nodes
         edge_new = self.nn_edge_fc1(torch.relu(pi + self.nn_edge_fc0_edge(edge) + pj))
         value = self.proj_value(x_j)
@@ -53,7 +54,7 @@ class FatEdgeAttention(nn.Module):
         if self.use_edge:
             e = self.proj_edge(edge).unflatten(-1, (self.d_e, self.h))
             gate_in = torch.cat([q, e], dim=-2)               # (..., d_n+d_e, H)
-        prob = torch.softmax(self.nn(gate_in), dim=-2)        # feature axis
+        prob = torch.softmax(self.nn(gate_in, rng), dim=-2)   # feature axis
         return prob.flatten(-2) * value, edge_new
 
 
@@ -62,7 +63,8 @@ class GraphEdgeAttenNetwork(nn.Module):
     MLP.  x (B, N, D), edge_feature (B, E, D) -> updated (x, edge_feature).
     In eval mode the max aggregation goes through the segment-max wrapper
     (the CUDA kernel on the card), as the JAX package routes
-    ``use_pallas=deterministic``."""
+    ``use_pallas=deterministic``; in training mode it is the plain scatter,
+    as in JAX (gnn.py:163-168)."""
 
     def __init__(self, num_heads: int, dim_node: int, dim_edge: int,
                  dim_atten: int, aggr: str = "max",
@@ -76,11 +78,11 @@ class GraphEdgeAttenNetwork(nn.Module):
         self.edgeatten_nn_edge_fc0_node_j = nn.Linear(dim_node, hid, bias=False)
         self.prop = DenseStack(dim_node + dim_atten, [dim_node + dim_atten, dim_node])
 
-    def forward(self, x, edge_feature, edge_index, edge_mask):
+    def forward(self, x, edge_feature, edge_index, edge_mask, rng=None):
         x_i, x_j = gather_edge_endpoints(x, edge_index)
         nodes = (self.edgeatten_nn_edge_fc0_node_i(x_i),
                  self.edgeatten_nn_edge_fc0_node_j(x_j))
-        msg, edge_new = self.edgeatten(x_i, edge_feature, x_j, nodes)
+        msg, edge_new = self.edgeatten(x_i, edge_feature, x_j, nodes, rng)
         agg = scatter_edges_to_nodes(msg, edge_index, edge_mask, num_nodes=x.shape[1],
                                      aggr=self.aggr, use_kernel=not self.training)
         return self.prop(torch.cat([x, agg], dim=-1)), edge_new

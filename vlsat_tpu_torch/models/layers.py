@@ -47,6 +47,26 @@ class ChannelDense(nn.Module):
         return torch.einsum("...ch,cf->...fh", x, self.kernel) + self.bias[:, None]
 
 
+class Dropout(nn.Module):
+    """Inverted dropout whose mask comes from the ``torch.Generator`` the
+    caller passes as ``rng`` (flax's ``nn.Dropout`` with an explicit key):
+    in training mode an element is kept with probability 1 - p and scaled
+    by 1 / (1 - p); in eval mode, or at p = 0, the identity.  The global RNG
+    is never used, so a seed fixes every mask of a step."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, rng: torch.Generator | None = None):
+        if not self.training or self.p == 0.0:
+            return x
+        if rng is None:
+            raise ValueError("dropout in training mode needs a torch.Generator (rng)")
+        keep = torch.rand(x.shape, generator=rng, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
 class HeadMLP(nn.Module):
     """One MLP shared by all heads, over the channel axis of (..., C, H),
     ReLU (+ dropout) between layers (layers.py:66-96)."""
@@ -58,34 +78,49 @@ class HeadMLP(nn.Module):
         for i, f in enumerate(features):
             self.add_module(f"conv{i}", ChannelDense(in_channels, f))
             in_channels = f
-        self.drop = nn.Dropout(dropout) if dropout else nn.Identity()
+        self.drop = Dropout(dropout or 0.0)
 
-    def forward(self, x):
+    def forward(self, x, rng: torch.Generator | None = None):
         for i in range(self.n):
             x = getattr(self, f"conv{i}")(x)
             if i < self.n - 1:
-                x = self.drop(torch.relu(x))
+                x = self.drop(torch.relu(x), rng)
         return x
 
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over the valid rows of a padded batch (layers.py:99-132),
-    in eval: the running statistics, eps 1e-5.  The batch-statistics
-    (training) path comes with the training slice."""
+    eps 1e-5.  In eval mode it normalises with the running statistics.  In
+    training mode it normalises with the biased statistics of the rows
+    where ``mask`` is set (n = max(sum(mask), 1)) and moves the running
+    statistics in place with momentum 0.1, the variance unbiased by
+    n / max(n - 1, 1) (torch's ``BatchNorm1d`` would raise at n = 1, and
+    its statistics would count the padding)."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError("MaskedBatchNorm is ported for eval only")
-        return ((x - self.running_mean) / torch.sqrt(self.running_var + self.eps)
-                * self.weight + self.bias)
+    def forward(self, x, mask):
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            w = mask.to(x.dtype)[..., None]
+            n = w.sum().clamp(min=1.0)
+            axes = tuple(range(x.dim() - 1))
+            mean = (x * w).sum(dim=axes) / n
+            var = (w * torch.square(x - mean)).sum(dim=axes) / n
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * var * n / (n - 1).clamp(min=1.0))
+        return (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
 
 
 class PointNetEncoder(nn.Module):

@@ -5,7 +5,9 @@ Per layer: distance-biased 3D node self-attention; 2D node cross-attention
 ``GraphEdgeAttenNetwork`` per branch; then the 2D edges cross-attend to the
 3D edges under the factored ``q_mask``/``k_mask`` pair (the dense (B, 1, E, E)
 mask is never built).  ReLU + dropout between layers (and after the only
-layer when depth == 1), in the f3d, f2d, e3d, e2d order of the JAX module.
+layer when depth == 1), in the f3d, f2d, e3d, e2d order of the JAX module;
+in training mode every dropout mask is drawn from the one ``rng`` generator
+in that call order.
 ``with_2d=False`` runs the 3D path alone; its outputs equal the 3D outputs
 of the full stack, since the 2D branch only reads the 3D stream.
 """
@@ -16,6 +18,7 @@ import torch
 from torch import nn
 
 from vlsat_tpu_torch.models.gnn import GraphEdgeAttenNetwork
+from vlsat_tpu_torch.models.layers import Dropout
 from vlsat_tpu_torch.models.transformer import DistanceBiasMLP, MultiHeadAttention
 from vlsat_tpu_torch.ops.attention import pairwise_distance_bias
 
@@ -36,27 +39,28 @@ class MMG(nn.Module):
             self.add_module(f"gcn_3d_{i}", gcn())
             self.add_module(f"gcn_2d_{i}", gcn())
             self.add_module(f"cross_attn_rel_{i}", MultiHeadAttention(num_heads, dim_edge))
-        self.drop = nn.Dropout(dropout_atten)
+        self.drop = Dropout(dropout_atten)
 
     def forward(self, f3d, f2d, e3d, e2d, edge_index, obj_mask, edge_mask, obj_center,
-                with_2d: bool = True):
+                with_2d: bool = True, rng=None):
         node_mask = obj_mask[:, None, None, :] & obj_mask[:, None, :, None]
         bias = self.self_attn_fc(pairwise_distance_bias(obj_center.detach()))
         for i in range(self.depth):
-            f3d = getattr(self, f"self_attn_{i}")(f3d, f3d, f3d, mask=node_mask, bias=bias)
+            f3d = getattr(self, f"self_attn_{i}")(f3d, f3d, f3d, mask=node_mask, bias=bias,
+                                                 rng=rng)
             if with_2d:
                 f2d = getattr(self, f"cross_attn_{i}")(f2d, f3d, f3d, mask=node_mask,
-                                                      bias=bias)
-            f3d, e3d = getattr(self, f"gcn_3d_{i}")(f3d, e3d, edge_index, edge_mask)
+                                                      bias=bias, rng=rng)
+            f3d, e3d = getattr(self, f"gcn_3d_{i}")(f3d, e3d, edge_index, edge_mask, rng)
             if with_2d:
-                f2d, e2d = getattr(self, f"gcn_2d_{i}")(f2d, e2d, edge_index, edge_mask)
+                f2d, e2d = getattr(self, f"gcn_2d_{i}")(f2d, e2d, edge_index, edge_mask, rng)
                 e2d = getattr(self, f"cross_attn_rel_{i}")(e2d, e3d, e3d, q_mask=edge_mask,
-                                                          k_mask=edge_mask)
+                                                          k_mask=edge_mask, rng=rng)
             if i < self.depth - 1 or self.depth == 1:
-                f3d = self.drop(torch.relu(f3d))
+                f3d = self.drop(torch.relu(f3d), rng)
                 if with_2d:
-                    f2d = self.drop(torch.relu(f2d))
-                e3d = self.drop(torch.relu(e3d))
+                    f2d = self.drop(torch.relu(f2d), rng)
+                e3d = self.drop(torch.relu(e3d), rng)
                 if with_2d:
-                    e2d = self.drop(torch.relu(e2d))
+                    e2d = self.drop(torch.relu(e2d), rng)
         return f3d, f2d, e3d, e2d

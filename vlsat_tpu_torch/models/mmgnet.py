@@ -1,5 +1,5 @@
-"""The flagship VL-SAT model, inference forward (counterpart of
-``vlsat_tpu/models/mmgnet.py:46-95,144-278``).
+"""The flagship VL-SAT model (counterpart of
+``vlsat_tpu/models/mmgnet.py:46-95,114-291``).
 
   obj_points --PointNet(3->768)--> mlp_3d(768->504) ++ spatial(8) -> (N, 512)
   descriptor --edge_descriptor--> rel_encoder_{3d,2d} (11->512)
@@ -8,32 +8,40 @@
                         -> obj_logits_{3d,2d} = exp(obj_logit_scale) * cosine classifier
 
 ``branch_3d_only=True`` (the serving protocol) skips every 2D module; the 3D
-outputs are the same.  The train-time extras (``triplet_projector_2d``, the
-mimic features) and the in21k switches (``cosine_classifier``,
-``use_adapter``, ``use_mlp_3d``) come with the training and variants slices.
+outputs are the same.  ``istrain=True`` adds the train-time outputs of the
+distillation losses (the mimic features, ``triplet_projector_2d``'s
+projected 2D pair features and ``logit_scale``).  The module's mode decides
+dropout, BatchNorm statistics and the kernel routes, as JAX's
+``deterministic`` does: ``model.eval()`` with ``istrain=True`` is JAX's
+``istrain=True, deterministic=True``.  The in21k switches
+(``cosine_classifier``, ``use_adapter``, ``use_mlp_3d``) come with the
+variants slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from vlsat_tpu_torch.device import resolve_device
-from vlsat_tpu_torch.models.layers import AdapterModel, MaskedBatchNorm, PointNetEncoder
+from vlsat_tpu_torch.models.layers import (AdapterModel, Dropout, MaskedBatchNorm,
+                                           PointNetEncoder)
 from vlsat_tpu_torch.models.mmg import MMG
 from vlsat_tpu_torch.ops.descriptor import edge_descriptor
+from vlsat_tpu_torch.ops.graph import gather_edge_endpoints
 from vlsat_tpu_torch.ops.norm import safe_normalize
 from vlsat_tpu_torch.scene import SceneBatch
 
 
 @dataclasses.dataclass(frozen=True)
 class MMGNetConfig:
-    """The fields of ``vlsat_tpu.models.MMGNetConfig`` that the inference
-    forward reads, with the same defaults, plus ``point_channels`` (flax infers the
+    """The fields of ``vlsat_tpu.models.MMGNetConfig`` that the forward
+    reads, with the same defaults, plus ``point_channels`` (flax infers the
     encoder's input width from the data; torch layers need it up front)."""
 
     num_obj_classes: int = 160
@@ -64,26 +72,46 @@ class RelPredictor(nn.Module):
         self.multi_label = multi_label
         self.fc1 = nn.Linear(in_features, 512)
         self.fc2 = nn.Linear(512, 256)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         self.fc3 = nn.Linear(256, num_classes)
 
-    def forward(self, x):
-        x = torch.relu(self.drop(self.fc2(torch.relu(self.fc1(x)))))
+    def forward(self, x, rng=None):
+        x = torch.relu(self.drop(self.fc2(torch.relu(self.fc1(x))), rng))
         x = self.fc3(x)
         return torch.sigmoid(x) if self.multi_label else torch.log_softmax(x, dim=-1)
 
 
-class MMGNet(nn.Module):
-    """Flagship dual-branch model.  Apply to a SceneBatch of f32 tensors."""
+class TripletProjector(nn.Module):
+    """Linear(in -> 1024) - Dropout(0.5) - ReLU - Linear(1024 -> 512)
+    (mmgnet.py:114-122): the 2D pair features pulled toward CLIP text."""
 
-    def __init__(self, cfg: MMGNetConfig = MMGNetConfig()):
+    def __init__(self, in_features: int):
+        super().__init__()
+        self.fc0 = nn.Linear(in_features, 1024)
+        self.drop = Dropout(0.5)
+        self.fc1 = nn.Linear(1024, 512)
+
+    def forward(self, x, rng=None):
+        return self.fc1(torch.relu(self.drop(self.fc0(x), rng)))
+
+
+class MMGNet(nn.Module):
+    """Flagship dual-branch model.  Apply to a SceneBatch of f32 tensors.
+
+    ``obj_text_features``: optional (num_obj_classes, dim_node) table of
+    normalised CLIP text embeddings that ``init_parameters`` copies into both
+    cosine classifiers (``_text_kernel_init``, mmgnet.py:125-141)."""
+
+    def __init__(self, cfg: MMGNetConfig = MMGNetConfig(),
+                 obj_text_features: Optional[np.ndarray] = None):
         super().__init__()
         self.cfg = cfg
+        self.obj_text_features = obj_text_features
         self.obj_encoder = PointNetEncoder(cfg.point_channels, cfg.point_feature_size,
                                            fused=cfg.fused_pointnet)
         self.mlp_3d_fc = nn.Linear(cfg.point_feature_size, cfg.dim_node - 8)
         self.mlp_3d_bn = MaskedBatchNorm(cfg.dim_node - 8)
-        self.mlp_3d_drop = nn.Dropout(0.1)
+        self.mlp_3d_drop = Dropout(0.1)
         self.rel_encoder_2d = PointNetEncoder(11, cfg.dim_edge)
         self.rel_encoder_3d = PointNetEncoder(11, cfg.dim_edge)
         self.clip_adapter = AdapterModel(cfg.clip_feat_dim, alpha=cfg.adapter_alpha)
@@ -98,13 +126,20 @@ class MMGNet(nn.Module):
         self.obj_logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
         self.obj_predictor_3d = nn.Linear(cfg.dim_node, cfg.num_obj_classes)
         self.obj_predictor_2d = nn.Linear(cfg.dim_node, cfg.num_obj_classes)
+        self.triplet_projector_2d = TripletProjector(2 * cfg.dim_node + cfg.dim_edge)
 
-    def forward(self, batch: SceneBatch, branch_3d_only: bool = False
+    def forward(self, batch: SceneBatch, istrain: bool = False,
+                branch_3d_only: bool = False, rng: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
+        """``rng`` draws every dropout mask in training mode (a generator on
+        the batch's device)."""
+        if istrain and branch_3d_only:
+            raise ValueError("branch_3d_only is an inference mode")
         with_2d = not branch_3d_only
         obj = self.obj_encoder(batch.obj_points)
+        obj_feature_3d_mimic = obj[..., :self.cfg.clip_feat_dim]
         obj = self.mlp_3d_fc(obj)
-        obj = self.mlp_3d_drop(torch.relu(self.mlp_3d_bn(obj)))
+        obj = self.mlp_3d_drop(torch.relu(self.mlp_3d_bn(obj, batch.obj_mask)), rng)
         spatial = batch.descriptor[..., 3:]
         spatial = torch.cat([spatial[..., :6], torch.log(spatial[..., 6:])], dim=-1)
         obj = torch.cat([obj, spatial], dim=-1)
@@ -116,25 +151,40 @@ class MMGNet(nn.Module):
 
         f3d, f2d, e3d, e2d = self.mmg(obj, obj_2d, rel_3d, rel_2d, batch.edge_index,
                                       batch.obj_mask, batch.edge_mask,
-                                      batch.descriptor[..., :3], with_2d=with_2d)
+                                      batch.descriptor[..., :3], with_2d=with_2d, rng=rng)
         scale = torch.exp(self.obj_logit_scale)
         out = {"obj_logits_3d": scale * self.obj_predictor_3d(safe_normalize(f3d)),
-               "rel_cls_3d": self.rel_predictor_3d(e3d)}
+               "rel_cls_3d": self.rel_predictor_3d(e3d, rng)}
         if with_2d:
             out["obj_logits_2d"] = scale * self.obj_predictor_2d(safe_normalize(f2d))
-            out["rel_cls_2d"] = self.rel_predictor_2d(e2d)
+            out["rel_cls_2d"] = self.rel_predictor_2d(e2d, rng)
+        if istrain:
+            f2d_i, f2d_j = gather_edge_endpoints(f2d, batch.edge_index)
+            out.update(
+                obj_feature_3d_mimic=obj_feature_3d_mimic,
+                obj_features_2d_mimic=obj_2d,
+                edge_feature_2d_dis=self.triplet_projector_2d(
+                    torch.cat([f2d_i, f2d_j, e2d], dim=-1), rng),
+                logit_scale=scale)
         return out
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation in place: LeCun-normal kernels (flax's Dense
     default), zero biases, unit norm scales, identity BN statistics and
-    ``obj_logit_scale = log(1/0.07)``.  Values are drawn on the CPU from
-    ``generator`` and copied to the model's device."""
+    ``obj_logit_scale = log(1/0.07)``; the cosine classifiers' weights are
+    the model's ``obj_text_features`` table where it has one.  Values are
+    drawn on the CPU from ``generator`` and copied to the model's device."""
+    table = getattr(model, "obj_text_features", None)
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "obj_logit_scale":
+            if table is not None and name in ("obj_predictor_3d.weight",
+                                              "obj_predictor_2d.weight"):
+                val = torch.as_tensor(np.asarray(table, np.float32))
+                if val.shape != p.shape:
+                    raise ValueError(f"obj_text_features {tuple(val.shape)} != {tuple(p.shape)}")
+            elif leaf == "obj_logit_scale":
                 val = torch.tensor(math.log(1 / 0.07))
             elif leaf == "kernel":                       # ChannelDense (C, F)
                 val = torch.randn(p.shape, generator=generator) / math.sqrt(p.shape[0])
@@ -149,13 +199,15 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             buf.fill_(1.0 if name.endswith("running_var") else 0.0)
 
 
-def build_mmgnet(cfg: MMGNetConfig = MMGNetConfig(), device=None, seed: int = 0) -> MMGNet:
+def build_mmgnet(cfg: MMGNetConfig = MMGNetConfig(), device=None, seed: int = 0,
+                 obj_text_features: Optional[np.ndarray] = None) -> MMGNet:
     """Model factory: an eval-mode ``MMGNet`` on ``device`` (the card unless
     the caller passes ``device="cpu"``) with weights drawn from
-    ``torch.Generator().manual_seed(seed)``."""
+    ``torch.Generator().manual_seed(seed)`` (and the cosine classifiers
+    from ``obj_text_features`` where given)."""
     dev = resolve_device(device)
     with torch.device("meta"):
-        model = MMGNet(cfg)
+        model = MMGNet(cfg, obj_text_features)
     model = model.to_empty(device=dev)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.eval()

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from vlsat_tpu_torch.models.layers import Dropout
 from vlsat_tpu_torch.ops.attention import masked_attention_bnhd
 
 LN_EPS = 1e-6
@@ -18,7 +19,8 @@ LN_EPS = 1e-6
 class MultiHeadAttention(nn.Module):
     """out = LayerNorm(q + Dropout(fc_o(attention(q, k, v)))), head-last
     layout.  mask: (B, 1|H, Nq, Nk) bool; bias: additive or multiplicative
-    weights broadcastable to (B, H, Nq, Nk)."""
+    weights broadcastable to (B, H, Nq, Nk); ``rng`` draws the dropout mask
+    in training mode."""
 
     def __init__(self, num_heads: int, d_model: int, dropout: float = 0.1,
                  d_in: int | None = None):
@@ -30,16 +32,16 @@ class MultiHeadAttention(nn.Module):
         self.fc_k = nn.Linear(d_in, hd)
         self.fc_v = nn.Linear(d_in, hd)
         self.fc_o = nn.Linear(hd, d_model)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, q, k, v, *, mask=None, bias=None, bias_way="add",
-                q_mask=None, k_mask=None):
+                q_mask=None, k_mask=None, rng=None):
         split = lambda fc, x: fc(x).unflatten(-1, (self.h, self.dk))
         out = masked_attention_bnhd(split(self.fc_q, q), split(self.fc_k, k),
                                     split(self.fc_v, v), mask=mask, bias=bias,
                                     bias_way=bias_way, q_mask=q_mask, k_mask=k_mask)
-        out = self.drop(self.fc_o(out.flatten(-2)))
+        out = self.drop(self.fc_o(out.flatten(-2)), rng)
         return self.layer_norm(q + out)
 
 

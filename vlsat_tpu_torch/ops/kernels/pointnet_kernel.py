@@ -6,7 +6,9 @@ Counterpart of ``vlsat_tpu/ops/pallas/pointnet_kernel.py``:
 of ``vlsat_tpu_torch/csrc/pointnet.cu``; v2 is its point-chunked
 configuration.  The plain twin is ``vlsat_tpu_torch.ops.pointnet``.
 A CPU tensor takes the twin, a CUDA tensor the kernel; there is no fallback
-between them.
+between them.  The kernel route is differentiable: its backward is the
+twin's gradient at the same primal, as the JAX package's interpret-mode
+call is differentiable.
 """
 
 from __future__ import annotations
@@ -40,8 +42,6 @@ def _launch(pts: torch.Tensor, weights: Sequence[torch.Tensor],
     (out, in), nn.Linear's layout, so ``w.t()`` of a Linear weight costs no
     copy here."""
     global launches
-    if len(weights) != 3 or len(biases) != 3:
-        raise ValueError("the fused PointNet kernel takes exactly three layers")
     tensors = [pts, *weights, *biases]
     if not all(t.is_cuda and t.device == pts.device for t in tensors):
         raise ValueError("the fused PointNet kernel needs all inputs on one CUDA device")
@@ -88,13 +88,44 @@ def _launch(pts: torch.Tensor, weights: Sequence[torch.Tensor],
     return out.reshape(*lead, o)
 
 
+class _PointNetKernel(torch.autograd.Function):
+    """Forward through the CUDA kernel; backward is the plain chain's
+    gradient at the same primal, re-derived from the saved inputs (as
+    ``_SegmentMaxKernel`` in ``ops/graph.py`` and the custom_vjp at
+    vlsat_tpu/ops/graph.py:137-153 do).  The kernel's own output carries no
+    autograd history, so without this no gradient would reach the encoder."""
+
+    @staticmethod
+    def forward(ctx, pts, w1, w2, w3, b1, b2, b3, p_chunk):
+        ctx.save_for_backward(pts, w1, w2, w3, b1, b2, b3)
+        return _launch(pts, (w1, w2, w3), (b1, b2, b3), p_chunk)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = [i for i, n in enumerate(ctx.needs_input_grad[:7]) if n]
+        xs = [t.detach().requires_grad_(i in need) for i, t in enumerate(ctx.saved_tensors)]
+        with torch.enable_grad():
+            out = pointnet_encode_plain(xs[0], xs[1:4], xs[4:7])
+            got = torch.autograd.grad(out, [xs[i] for i in need], grad)
+        grads = [None] * 8
+        for i, g in zip(need, got):
+            grads[i] = g
+        return tuple(grads)
+
+
+def _fused(pts, weights, biases, p_chunk: int) -> torch.Tensor:
+    if len(weights) != 3 or len(biases) != 3:
+        raise ValueError("the fused PointNet kernel takes exactly three layers")
+    return _PointNetKernel.apply(pts, *weights, *biases, p_chunk)
+
+
 def pointnet_encode_fused(pts: torch.Tensor, weights: Sequence[torch.Tensor],
                           biases: Sequence[torch.Tensor]) -> torch.Tensor:
     """pts (..., P, C) -> (..., out), weights (in, out).  The whole point
     set of an instance is one slab (the unchunked kernel)."""
     if not pts.is_cuda:
         return pointnet_encode_plain(pts, weights, biases)
-    return _launch(pts, weights, biases, p_chunk=pts.shape[-2])
+    return _fused(pts, weights, biases, pts.shape[-2])
 
 
 def pointnet_encode_fused_v2(pts: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -108,6 +139,6 @@ def pointnet_encode_fused_v2(pts: torch.Tensor, weights: Sequence[torch.Tensor],
         raise ValueError(f"P={pts.shape[-2]} is not a multiple of p_chunk={p_chunk}")
     if not pts.is_cuda:
         return pointnet_encode_plain(pts, weights, biases)
-    out = _launch(pts, weights, biases, p_chunk=p_chunk)
+    out = _fused(pts, weights, biases, p_chunk)
     launches_v2 += 1
     return out

@@ -1,22 +1,138 @@
-"""Eval step (counterpart of ``vlsat_tpu/train/step.py:203-221``).
+"""Train and eval steps (counterpart of ``vlsat_tpu/train/step.py``).
 
-The JAX step is a jitted ``model.apply(variables, batch)``; here the step
-runs the model eagerly with the weights passed in as a ``state_dict``
+The JAX steps are jitted programs; here they run eagerly.  The train step
+updates the ``TrainState`` in place: forward in training mode with the
+train-time outputs, objective, backward, AdamW step, scheduler step.  It
+reads nothing back to the host.  The eval step runs the model in eval mode
+with the weights passed in as a ``state_dict``
 (``torch.func.functional_call``), so the JAX package's (params,
-batch_stats) pair maps onto one argument.  The train steps come with the
-training slice.
+batch_stats) pair maps onto one argument.  Both keep full fp32: TF32 is
+switched off for matmuls and convolutions, as the JAX CPU reference
+computes in fp32.
+
+Dropout draws from a ``torch.Generator`` on the step's device seeded with
+the step's ``rng`` (an int, in the role of a JAX key); a multi-step call
+derives step i's seed from (rng, i) with ``fold_in``.  The masks cannot
+match flax's streams; the same seed gives the same masks.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping
+import dataclasses
+from typing import Callable, Dict, Mapping, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from vlsat_tpu_torch.data.wire import decode_wire
 from vlsat_tpu_torch.device import resolve_device
 from vlsat_tpu_torch.models.mmgnet import MMGNet
 from vlsat_tpu_torch.scene import SceneBatch
+from vlsat_tpu_torch.train.losses import vlsat_total_loss
+from vlsat_tpu_torch.train.optim import OptimizerSpec
+from vlsat_tpu_torch.train.state import TrainState
+
+Aux = Dict[str, torch.Tensor]
+
+
+def _fp32() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def fold_in(seed: int, i: int) -> int:
+    """A seed for step ``i`` of a call seeded with ``seed`` (the role of
+    ``jax.random.fold_in``); both non-negative."""
+    return int(np.random.SeedSequence([seed, i]).generate_state(1, np.uint64)[0] >> 1)
+
+
+def _materialize_text(batch: SceneBatch, table) -> SceneBatch:
+    """Expand compact ``rel_text_idx`` rows into ``rel_text_feat`` from the
+    device-resident table (row 0 is the zero vector of padded edges)."""
+    if batch.rel_text_idx is None or table is None:
+        return batch
+    return batch.replace(rel_text_feat=table[batch.rel_text_idx.long()], rel_text_idx=None)
+
+
+def make_train_step(model: MMGNet, optimizer: OptimizerSpec, lambda_o: float = 0.1,
+                    objective=None, text_table=None, device=None
+                    ) -> Callable[[TrainState, SceneBatch, int], Tuple[TrainState, Aux]]:
+    """Returns ``train_step(state, batch, rng) -> (state, aux)`` for a state
+    made by ``create_train_state(model, optimizer)``.  The (wire-encoded)
+    host batch moves to ``device`` (the card unless the caller passes
+    ``device="cpu"``).  ``objective(outputs, batch) -> (loss, aux)``
+    defaults to ``vlsat_total_loss`` with ``lambda_o``.  ``aux`` holds the
+    objective's terms and ``logit_scale`` as device tensors.
+
+    ``text_table``: an optional (T, D) table of text targets; batches then
+    carry (B, E) int32 ``rel_text_idx`` rows, gathered on the device."""
+    if objective is None:
+        objective = lambda outputs, batch: vlsat_total_loss(outputs, batch, lambda_o=lambda_o)
+    dev = resolve_device(device)
+    _fp32()
+    table = None if text_table is None else torch.as_tensor(
+        np.asarray(text_table, np.float32)).to(dev)
+
+    def train_step(state: TrainState, batch: SceneBatch, rng: int
+                   ) -> Tuple[TrainState, Aux]:
+        if state.model is not model:
+            raise ValueError("the state was not created for this step's model")
+        if not model.training:
+            model.train()
+        batch = _materialize_text(decode_wire(batch.to(dev, non_blocking=True)), table)
+        gen = torch.Generator(device=dev).manual_seed(rng)
+        outputs = model(batch, istrain=True, rng=gen)
+        loss, aux = objective(outputs, batch)
+        if "logit_scale" in outputs:
+            aux["logit_scale"] = outputs["logit_scale"]
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.update(state.optimizer, state.scheduler)
+        state.step += 1
+        return state, {k: v.detach() for k, v in aux.items()}
+
+    train_step.device = dev
+    return train_step
+
+
+def stack_batches(batches: Sequence[SceneBatch]) -> SceneBatch:
+    """Stack K same-shape SceneBatches along a new leading axis (the input of
+    ``make_multi_train_step``)."""
+    kw = {}
+    for f in dataclasses.fields(SceneBatch):
+        vals = [getattr(b, f.name) for b in batches]
+        kw[f.name] = None if vals[0] is None else torch.stack(vals)
+    return SceneBatch(**kw)
+
+
+def _unstack(batches: SceneBatch, i: int) -> SceneBatch:
+    return SceneBatch(**{f.name: None if getattr(batches, f.name) is None
+                         else getattr(batches, f.name)[i]
+                         for f in dataclasses.fields(SceneBatch)})
+
+
+def make_multi_train_step(model: MMGNet, optimizer: OptimizerSpec, lambda_o: float = 0.1,
+                          objective=None, text_table=None, device=None
+                          ) -> Callable[[TrainState, SceneBatch, int], Tuple[TrainState, Aux]]:
+    """K train steps per call over a ``stack_batches`` stack, moved to the
+    device in one copy; step i's dropout seed is ``fold_in(rng, i)``.
+    Returns ``fn(state, stacked, rng) -> (state, aux)`` with ``aux["loss"]``
+    the last step's loss and ``aux["losses"]`` all K (device tensors)."""
+    step = make_train_step(model, optimizer, lambda_o=lambda_o, objective=objective,
+                           text_table=text_table, device=device)
+
+    def multi_step(state: TrainState, batches: SceneBatch, rng: int
+                   ) -> Tuple[TrainState, Aux]:
+        batches = batches.to(step.device, non_blocking=True)
+        losses = []
+        for i in range(batches.obj_points.shape[0]):
+            state, aux = step(state, _unstack(batches, i), fold_in(rng, i))
+            losses.append(aux["loss"])
+        losses = torch.stack(losses)
+        return state, {"loss": losses[-1], "losses": losses}
+
+    multi_step.device = step.device
+    return multi_step
 
 
 def make_eval_step(model: MMGNet, branch_3d_only: bool = False, device=None
@@ -26,20 +142,19 @@ def make_eval_step(model: MMGNet, branch_3d_only: bool = False, device=None
     batch to ``device`` (the card unless the caller passes ``device="cpu"``),
     widens it to f32 there and runs the model in eval mode under
     ``torch.inference_mode()`` with the weights of ``state`` (the model's
-    ``state_dict`` keys, on ``device``).  The dual-branch forward by default,
-    as in JAX; ``branch_3d_only=True`` is the serving mode.
-
-    Full fp32: TF32 is switched off for matmuls and convolutions, as the
-    JAX CPU reference computes in fp32."""
+    ``state_dict`` keys, on ``device``; a trained state's
+    ``state.model.state_dict()``, which shares the model's storage).  The dual-branch forward by default,
+    as in JAX; ``branch_3d_only=True`` is the serving mode."""
     if not isinstance(model, MMGNet):
         raise ValueError(f"make_eval_step takes an MMGNet, got {type(model).__name__}")
     dev = resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _fp32()
     model.eval()
 
     def eval_step(state: Mapping[str, torch.Tensor], batch: SceneBatch
                   ) -> Dict[str, torch.Tensor]:
+        if model.training:  # the model was trained since
+            model.eval()
         with torch.inference_mode():
             batch = decode_wire(batch.to(dev, non_blocking=True))
             return torch.func.functional_call(
