@@ -47,7 +47,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tests/test_parity_torch.py, on every element in fp64 and on 99.5 % of
    each leaf's elements in fp32); the eval-mode gradient of the object
    encoder through the fused PointNet kernel equal to the plain route's at
-   the fp32 gate.
+   the fp32 gate;
+10. data feed: a 548-scan split with the node and relation counts of the
+    3DSSG validation split, written as PLY files (a few thousand vertices
+    per instance plus unlabelled clutter), parsed by the native reader in
+    ``data.dataset.SSGScenes`` and packed by ``data.packed.pack_scenes``
+    with stand-in text targets (pack time, scenes/s, bytes); placed on the
+    card by ``data.resident.ResidentScenes`` (bytes, time); evaluated at B=32
+    through the streaming ``PackedLoader`` (f16 and bit-exact f32 wire),
+    ``ResidentEvalLoader`` and ``ResidentGroupedEval`` (K = 4): resident
+    metrics equal to the f32 streaming run's, the grouped run's rank lists
+    against them with every mismatch counted (at most 0.1 % of the ranks,
+    and the padded tail batches' outputs within rtol 1e-5 of the unpadded
+    ones), segment-max launched 4 times and the fused PointNet once per
+    evaluated batch or grouped row; wall s, scenes/s, idle share and H2D
+    bytes per batch or group; ``make_resident_multi_train_step`` at B=8, K=4
+    over ``epoch_permutations`` with the pack's text table, its first
+    group's losses within 1e-6 relative of ``make_multi_train_step``'s on
+    the same rows (dropout off), trained scenes/s of both, step wall ms and
+    idle share; and a sweep of B in {16, 32, 64} over the grouped path at
+    buckets 8 and 12 (the port's ``DEFAULT_EVAL_BATCH`` entries).
 
 The last lines are a JSON ``kernels`` line, the card's name and power limit
 as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
@@ -56,11 +75,15 @@ as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
+import os
+import shutil
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -72,6 +95,12 @@ SEED = 0
 BATCH = 32
 BUCKETS = (16, 48, 64)     # node buckets of the kernel phases; serving lands in 48
 TRAIN_BATCH = 8            # the JAX config's Batch_Size
+EVAL_GROUP = 4             # the JAX config's EVAL_GROUP
+TRAIN_GROUP = 4            # train steps per resident multi-step call
+FEED_SCANS = 548           # scan-splits of the 3DSSG validation split
+VERTS_PER_INST = 3000      # vertices of each annotated instance's mesh
+BG_VERTS = 20000           # unlabelled vertices of each scan
+WORK = Path(__file__).resolve().parent / ".chip_work" / "data_feed"
 
 
 def log(msg: str) -> None:
@@ -725,6 +754,401 @@ def training(dev) -> dict:
             "launches": launches, "card_vs_cpu": card_vs_cpu, "fused_encoder_grads": enc_gate}
 
 
+class TextTargets:
+    """Stand-in CLIP text targets for the rel-mimic loss, looked up per edge
+    as the JAX package's TripletTextCache looks them up: one vector per
+    sentence (subject, predicate, object), or (subject, object) for an edge
+    without a relation, here drawn from one seeded stream the first time
+    the sentence is seen (a serial pack sees them in a fixed order); an
+    edge's target is the normalised mean of its sentences."""
+
+    def __init__(self, dim: int = 512, seed: int = SEED):
+        self.dim = dim
+        self._rng = np.random.RandomState(seed)
+        self._vecs: dict = {}
+        self.seconds = 0.0  # host time spent in lookups
+
+    def _vec(self, key) -> np.ndarray:
+        if key not in self._vecs:
+            self._vecs[key] = self._rng.randn(self.dim).astype(np.float32)
+        return self._vecs[key]
+
+    def __call__(self, gt_class, gt_rels, edge_index) -> np.ndarray:
+        t0 = time.monotonic()
+        out = np.zeros((len(edge_index), self.dim), np.float32)
+        for e, (i, j) in enumerate(edge_index):
+            s, o = int(gt_class[i]), int(gt_class[j])
+            vecs = [self._vec((s, int(r), o)) for r in np.nonzero(gt_rels[e])[0]]
+            v = np.mean(vecs or [self._vec((s, o))], axis=0)
+            out[e] = v / max(np.linalg.norm(v), 1e-12)
+        self.seconds += time.monotonic() - t0
+        return out
+
+
+class OneBucket:
+    """A view of a ResidentScenes that holds one bucket (the batch sweep)."""
+
+    def __init__(self, resident, bucket: int):
+        self._resident = resident
+        self.buckets = [bucket]
+
+    def __getattr__(self, name):
+        return getattr(self._resident, name)
+
+
+def reset_launches() -> None:
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+
+    segment_max.launches = 0
+    pointnet_kernel.launches = 0
+    pointnet_kernel.launches_v2 = 0
+
+
+def read_launches() -> dict:
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+
+    return {"segment_max": segment_max.launches,
+            "pointnet_fused": pointnet_kernel.launches - pointnet_kernel.launches_v2,
+            "pointnet_fused_v2": pointnet_kernel.launches_v2}
+
+
+@contextlib.contextmanager
+def wire(dtype: str):
+    old = os.environ.get("VLSAT_WIRE_DTYPE")
+    os.environ["VLSAT_WIRE_DTYPE"] = dtype
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["VLSAT_WIRE_DTYPE"]
+        else:
+            os.environ["VLSAT_WIRE_DTYPE"] = old
+
+
+def nbytes(batch) -> int:
+    return sum(v.numel() * v.element_size() for v in vars(batch).values() if v is not None)
+
+
+def timed_evaluate(step, state, loader, kw, wire_dtype, save_dir=None) -> tuple:
+    """(wall s, metrics) of one evaluate() pass on ``wire_dtype``."""
+    from vlsat_tpu_torch.eval.engine import evaluate
+
+    with wire(wire_dtype):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        metrics = evaluate(step, state, loader, save_dir=save_dir, **kw)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0, metrics
+
+
+def feed_eval(name, make_loader, step, state, kw, wire_dtype, save_dir, scenes: int) -> dict:
+    """One loader through evaluate(): a warm-up pass, a timed pass with the
+    launch counters at 0 just before it (its rank lists saved), then a pass
+    under torch.profiler for the device busy time.  ``data_feed`` times a
+    second pass in the reverse order of the loaders."""
+    from vlsat_tpu_torch.data.wire import encode_wire
+    from vlsat_tpu_torch.eval.engine import evaluate
+
+    with wire(wire_dtype):
+        evaluate(step, state, make_loader(), **kw)
+        torch.cuda.synchronize()
+        loader = make_loader()
+        reset_launches()
+        wall, metrics = timed_evaluate(step, state, loader, kw, wire_dtype, save_dir)
+        launches = read_launches()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            evaluate(step, state, make_loader(), **kw)
+            torch.cuda.synchronize()
+        # what crosses host to device per item, from the items' shapes
+        items = list(make_loader())
+        if getattr(loader, "grouped", False):
+            rows = sum(idx.shape[0] for _, _, idx in items)
+            h2d = [idx.nbytes for _, _, idx in items]
+        elif isinstance(items[0], tuple):
+            rows, h2d = len(items), [0] * len(items)
+        else:
+            rows, h2d = len(items), [nbytes(encode_wire(b)) for b in items]
+    busy_ms = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3
+    if launches["segment_max"] != 4 * rows or launches["pointnet_fused"] != rows \
+            or launches["pointnet_fused_v2"]:
+        fail(f"data feed, {name}: launches {launches} for {rows} evaluated batches "
+             f"(want 4 segment-max and 1 fused PointNet each)")
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if bad or len(metrics) < 56:
+        fail(f"data feed, {name}: {len(metrics)} metrics, non-finite: {bad}")
+    return {"items": len(items), "evaluated_batches": rows, "scenes": scenes, "walls_s": [wall],
+            "device_busy_s": busy_ms / 1e3, "h2d_bytes_per_item": float(np.mean(h2d)),
+            "per": "group" if getattr(loader, "grouped", False) else "batch",
+            "wire": wire_dtype, "launches": launches, "metrics": metrics}
+
+
+def rank_lists(save_dir) -> dict:
+    return {n: np.load(os.path.join(save_dir, f"{n}.npy"))
+            for n in ("topk_pred_list", "topk_triplet_list", "cls_matrix_list")}
+
+
+def tail_output_diff(step, state, resident, batch: int) -> float:
+    """Largest relative difference, over the live rows, between each bucket's
+    last batch evaluated alone and padded to ``batch`` rows the way the
+    grouped loader pads it (the last scene repeated)."""
+    from vlsat_tpu_torch.data.resident import gather_rows
+
+    worst = 0.0
+    with torch.inference_mode():
+        for b in resident.buckets:
+            c = resident.count(b)
+            start = (c - 1) // batch * batch
+            full = resident.full_batch(b)
+            dev = full.obj_points.device
+            alone = step(state, gather_rows(full, torch.arange(start, c, device=dev)))
+            rows = torch.clamp(torch.arange(start, start + batch, device=dev), max=c - 1)
+            padded = step(state, gather_rows(full, rows))
+            for k, v in alone.items():
+                d = (padded[k][:c - start] - v).abs().max() / v.abs().max().clamp_min(1e-30)
+                worst = max(worst, d.item())
+    return worst
+
+
+def data_feed(model, dev, cfg) -> dict:
+    """Phase 10: the data feed on the card."""
+    from vlsat_tpu_torch import native
+    from vlsat_tpu_torch.data.dataset import SSGScenes
+    from vlsat_tpu_torch.data.packed import PackedLoader, PackedScenes, pack_scenes
+    from vlsat_tpu_torch.data.resident import (ResidentEvalLoader, ResidentGroupedEval,
+                                               ResidentScenes, epoch_permutations,
+                                               split_nbytes)
+    from vlsat_tpu_torch.data.synthetic import make_synthetic_split, validation_scene_stats
+    from vlsat_tpu_torch.eval.engine import evaluate
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.train.optim import make_optimizer
+    from vlsat_tpu_torch.train.state import create_train_state
+    from vlsat_tpu_torch.train.step import (make_eval_step, make_multi_train_step,
+                                            make_resident_multi_train_step, stack_batches)
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    out: dict = {}
+    # 1. the split, from PLY files, through the native parser into a pack
+    nodes, rels = validation_scene_stats(FEED_SCANS, seed=SEED + 6)
+    t0 = time.monotonic()
+    root, scans, _ = make_synthetic_split(
+        str(WORK / "split"), num_scans=FEED_SCANS, node_counts=nodes, rel_counts=rels,
+        vertices_per_inst=VERTS_PER_INST, seed=SEED + 6, write_ply=True,
+        background_verts=BG_VERTS)
+    split_s = time.monotonic() - t0
+    ply_bytes = sum(f.stat().st_size for f in Path(scans).rglob("*.ply"))
+    lib = native.load()
+    if lib is None:
+        fail("data feed: the native PLY parser did not build (g++)")
+    t0 = time.monotonic()
+    for f in sorted(Path(scans).rglob("*.ply")):
+        lib.read_ply(str(f))
+    parse_s = time.monotonic() - t0
+    text = TextTargets()
+    scenes = SSGScenes(root, scans, "validation_scans", triplet_text_lookup=text)
+    t0 = time.monotonic()
+    pack_scenes(scenes, str(WORK / "pack"), seed=SEED)
+    pack_s = time.monotonic() - t0
+    packed = PackedScenes(str(WORK / "pack"))
+    pack_bytes = sum(f.stat().st_size for f in (WORK / "pack").iterdir())
+    counts = {b: packed.count(b) for b in packed.buckets}
+    if len(packed) != FEED_SCANS or sorted(counts) != [8, 12]:
+        fail(f"data feed: pack holds {counts}, want {FEED_SCANS} scenes in buckets 8 and 12")
+    out["split"] = {"scans": FEED_SCANS, "nodes": int(sum(nodes)), "relationships": int(sum(rels)),
+                    "vertices_per_instance": VERTS_PER_INST, "background_vertices": BG_VERTS,
+                    "ply_bytes": ply_bytes, "write_s": split_s, "native_parse_s": parse_s,
+                    "pack_s": pack_s, "pack_text_targets_s": text.seconds,
+                    "pack_scenes_per_sec": FEED_SCANS / pack_s, "pack_bytes": pack_bytes,
+                    "buckets": counts, "text_table_rows": int(packed.text_table.shape[0]),
+                    "max_gt": packed.max_gt}
+    log(f"data feed: {FEED_SCANS} scans ({sum(nodes)} instances of {VERTS_PER_INST} vertices, "
+        f"{BG_VERTS} unlabelled vertices a scan, {sum(rels)} relationships) written as "
+        f"{ply_bytes / 1e6:.1f} MB of PLY in {split_s:.1f} s; native parse alone "
+        f"{parse_s:.2f} s; parse + prepare + pack in {pack_s:.2f} s ({FEED_SCANS / pack_s:.1f} "
+        f"scenes/s on the host, {text.seconds:.2f} s of it in the stand-in text targets), pack "
+        f"{pack_bytes / 1e6:.2f} MB, buckets {counts}")
+
+    # 2. the split on the card
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    resident = ResidentScenes(packed, device=dev)
+    torch.cuda.synchronize()
+    place_s = time.monotonic() - t0
+    out["resident"] = {"split_nbytes": split_nbytes(packed), "place_s": place_s,
+                       "bytes_per_scene": split_nbytes(packed) / len(packed)}
+    log(f"data feed: split_nbytes {split_nbytes(packed)} ({split_nbytes(packed) / len(packed):.0f} "
+        f"per scene) placed on the card in {place_s * 1e3:.1f} ms")
+
+    # 3. evaluation three ways
+    step = make_eval_step(model, device=dev)
+    state = model.state_dict()
+    vocab = triplet_vocab([packed.batch(b, slice(None)) for b in packed.buckets])
+    kw = dict(num_rel_classes=cfg.num_rel_classes, verbose=False, scene_recall=True,
+              train_triplet_vocab=vocab)
+    loaders = {
+        "streaming_f16": (lambda: PackedLoader(packed, BATCH), "float16"),
+        "streaming_f32": (lambda: PackedLoader(packed, BATCH), "float32"),
+        "resident": (lambda: ResidentEvalLoader(resident, BATCH), "float32"),
+        "grouped": (lambda: ResidentGroupedEval(resident, BATCH, group=EVAL_GROUP), "float32"),
+    }
+    runs, launches = {}, {"segment_max": 0, "pointnet_fused": 0}
+    for name, (make, wdt) in loaders.items():
+        runs[name] = feed_eval(name, make, step, state, kw, wdt, str(WORK / name), len(packed))
+        for k in launches:
+            launches[k] += runs[name]["launches"][k]
+    for name, (make, wdt) in reversed(loaders.items()):  # the order's share of the spread
+        runs[name]["walls_s"].append(timed_evaluate(step, state, make(), kw, wdt)[0])
+    for name, run in runs.items():
+        wall = float(np.mean(run["walls_s"]))
+        run.update(scenes_per_sec=run["scenes"] / wall,
+                   device_idle_share=1 - run["device_busy_s"] / wall)
+        log(f"data feed, {name}: {run['scenes']} scenes in {run['walls_s'][0]:.3f} / "
+            f"{run['walls_s'][1]:.3f} s ({run['scenes_per_sec']:.1f} scenes/s), idle share "
+            f"{run['device_idle_share']:.3f}, {run['h2d_bytes_per_item']:.0f} H2D bytes per "
+            f"{run['per']}; launches {run['launches']}")
+    ref = runs["streaming_f32"]["metrics"]
+    diff = lambda name: sorted(k for k, v in runs[name]["metrics"].items()
+                               if not (v == ref[k] or (np.isnan(v) and np.isnan(ref[k]))))
+    if diff("resident"):
+        fail(f"data feed: resident metrics differ from streaming on {diff('resident')}")
+    lists = {n: rank_lists(WORK / n) for n in ("streaming_f32", "grouped")}
+    mism = {k: int((lists["grouped"][k] != v).sum()) if lists["grouped"][k].shape == v.shape
+            else -1 for k, v in lists["streaming_f32"].items()}
+    ranks = sum(v.size for v in lists["streaming_f32"].values())
+    tail = tail_output_diff(step, state, resident, BATCH)
+    out["eval_checks"] = {"resident_equal_to_streaming": True,
+                          "grouped_metrics_differing": diff("grouped"),
+                          "grouped_rank_mismatches": mism, "ranks_compared": ranks,
+                          "tail_batch_output_max_rel_diff": tail,
+                          "f16_wire_metrics_differing": diff("streaming_f16")}
+    log(f"data feed: resident metrics equal to streaming (f32 wire) on all {len(ref)}; grouped "
+        f"metrics differing on {diff('grouped')}, rank-list mismatches {mism} of {ranks}; padded "
+        f"tail batches within {tail:.2e} of the unpadded; f16 wire metrics differing on "
+        f"{diff('streaming_f16')}")
+    if min(mism.values()) < 0 or sum(mism.values()) > 1e-3 * ranks or tail > 1e-5:
+        fail(f"data feed: grouped evaluation is more than near-ties away from streaming: "
+             f"{out['eval_checks']}")
+    out["eval"] = {k: {kk: vv for kk, vv in v.items() if kk != "metrics"} for k, v in runs.items()}
+
+    # 4. training over the resident split, B=8, K=4
+    tcfg = MMGNetConfig(fused_pointnet=True)
+    spec = make_optimizer(lr=1e-4, max_iteration=1000)
+    group = TRAIN_BATCH * TRAIN_GROUP
+    perms = list(epoch_permutations(counts, group=group, epoch=0, seed=SEED))
+    b0, p0 = perms[0]
+    first = {}
+    for path in ("resident", "streaming"):
+        m = dropout_off(build_mmgnet(tcfg, device=dev, seed=SEED + 7))
+        st = create_train_state(m, spec)
+        if path == "resident":
+            fn = make_resident_multi_train_step(m, spec, batch_size=TRAIN_BATCH,
+                                                text_table=packed.text_table, device=dev)
+            _, aux = fn(st, resident.full_batch(b0), p0, 0)
+        else:
+            fn = make_multi_train_step(m, spec, text_table=packed.text_table, device=dev)
+            _, aux = fn(st, stack_batches([packed.batch(b0, p0[i:i + TRAIN_BATCH])
+                                           for i in range(0, group, TRAIN_BATCH)]), 0)
+        first[path] = aux["losses"].cpu().double()
+    rel = ((first["resident"] - first["streaming"]).abs() / first["streaming"].abs()).max().item()
+    if not rel <= 1e-6:
+        fail(f"data feed: resident multi-step losses {first['resident'].tolist()} against "
+             f"streaming {first['streaming'].tolist()} (max rel {rel:.2e} > 1e-6)")
+    log(f"data feed: first group's losses (bucket {b0}, K={TRAIN_GROUP}, B={TRAIN_BATCH}, dropout "
+        f"off) resident {first['resident'].tolist()} / streaming {first['streaming'].tolist()}, "
+        f"max rel diff {rel:.2e}")
+    train = {"first_group_losses": {k: v.tolist() for k, v in first.items()},
+             "first_group_max_rel_diff": rel, "groups_per_epoch": len(perms)}
+    runners = {}
+    for path in ("resident", "streaming"):
+        m = build_mmgnet(tcfg, device=dev, seed=SEED + 8)
+        st = create_train_state(m, spec)
+        if path == "resident":
+            fn = make_resident_multi_train_step(m, spec, batch_size=TRAIN_BATCH,
+                                                text_table=packed.text_table, device=dev)
+            runners[path] = functools.partial(
+                lambda fn, st, b, p, i: fn(st, resident.full_batch(b), p, i), fn, st)
+        else:
+            fn = make_multi_train_step(m, spec, text_table=packed.text_table, device=dev)
+            runners[path] = functools.partial(lambda fn, st, b, p, i: fn(st, stack_batches(
+                [packed.batch(b, p[j:j + TRAIN_BATCH]) for j in range(0, group, TRAIN_BATCH)]),
+                i), fn, st)
+        for b, p in {b: p for b, p in perms}.items():  # warm-up: one group per bucket
+            runners[path](b, p, 0)
+    walls = {path: [] for path in runners}
+    steps = len(perms) * TRAIN_GROUP
+    for path in ("resident", "streaming", "streaming", "resident"):  # epochs 1-2 of each
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        losses = [runners[path](b, p, i)[1]["loss"] for i, (b, p) in enumerate(perms)]
+        torch.cuda.synchronize()
+        walls[path].append(time.monotonic() - t0)
+        if any(read_launches().values()):
+            fail(f"data feed: training launched kernels {read_launches()}")
+        losses = torch.stack(losses).cpu()
+        if not torch.isfinite(losses).all():
+            fail(f"data feed: non-finite training losses on the {path} path")
+        train.setdefault(f"{path}_epoch_losses", []).append([losses[0].item(), losses[-1].item()])
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for path, run in runners.items():
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        for i, (b, p) in enumerate(perms[:3]):
+            run(b, p, i)
+        torch.cuda.synchronize()
+        plain_wall = time.monotonic() - t1
+        with torch.profiler.profile(activities=acts) as prof:
+            for i, (b, p) in enumerate(perms[:3]):
+                run(b, p, i)
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e6
+        wall = float(np.mean(walls[path]))
+        train[path] = {"steps": steps, "scenes": steps * TRAIN_BATCH, "walls_s": walls[path],
+                       "scenes_per_sec": steps * TRAIN_BATCH / wall,
+                       "step_wall_ms": wall * 1e3 / steps,
+                       "device_busy_ms_per_step": busy * 1e3 / (3 * TRAIN_GROUP),
+                       "device_idle_share": 1 - busy / plain_wall,
+                       "h2d_bytes_per_call": (p0.nbytes if path == "resident" else nbytes(
+                           stack_batches([packed.batch(b0, p0[j:j + TRAIN_BATCH])
+                                          for j in range(0, group, TRAIN_BATCH)])))}
+        log(f"data feed, training ({path}): {steps} steps, {steps * TRAIN_BATCH} scenes in "
+            f"{walls[path][0]:.2f} / {walls[path][1]:.2f} s ({steps * TRAIN_BATCH / wall:.1f} "
+            f"scenes/s, {wall * 1e3 / steps:.2f} ms a step), idle share "
+            f"{train[path]['device_idle_share']:.3f}, epoch losses "
+            f"{train[f'{path}_epoch_losses']}")
+    out["train"] = train
+
+    # 5. eval batch sizes over the grouped resident path, per bucket
+    sweep = {}
+    with wire("float32"):
+        for b in sorted(counts):
+            view = OneBucket(resident, b)
+            for bs in (16, 32, 64):
+                make = lambda: ResidentGroupedEval(view, bs, group=EVAL_GROUP)
+                evaluate(step, state, make(), **kw)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                walls = []
+                for _ in range(3):
+                    t0 = time.monotonic()
+                    evaluate(step, state, make(), **kw)
+                    torch.cuda.synchronize()
+                    walls.append(time.monotonic() - t0)
+                sweep[f"{b}/{bs}"] = {"bucket": b, "batch": bs, "scenes": counts[b],
+                                      "walls_s": walls,
+                                      "scenes_per_sec": counts[b] / float(np.median(walls)),
+                                      "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+                log(f"data feed, eval batch sweep: bucket {b}, B={bs}: "
+                    f"{counts[b] / float(np.median(walls)):.1f} scenes/s (median of 3)")
+    best = {b: max((v for v in sweep.values() if v["bucket"] == b),
+                   key=lambda v: v["scenes_per_sec"])["batch"] for b in counts}
+    out["eval_batch_sweep"] = {"runs": sweep, "best": best}
+    log(f"data feed: fastest eval batch per bucket {best}")
+    out["launches"] = launches
+    shutil.rmtree(WORK, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs an NVIDIA card")
@@ -812,6 +1236,15 @@ def main() -> None:
     for k in kernels:
         k["launches_train"] = tr["launches"].get(k["name"], 0)
     log(json.dumps({"training": tr}))
+
+    # 10. the data feed
+    feed = data_feed(model, dev, cfg)
+    for k in kernels:
+        k["launches_data_feed"] = feed["launches"].get(k["name"], 0)
+    for name in ("segment_max", "pointnet_fused"):
+        if feed["launches"][name] <= 0:
+            fail(f"the data-feed evaluation never launched the {name} kernel")
+    log(json.dumps({"data_feed": feed}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -415,3 +415,100 @@ def test_train_step_on_card_matches_cpu(dev):
     assert (segment_max.launches, pointnet_kernel.launches) == counts
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
     _assert_grads_at_gate(*models)
+
+
+# ---------------------------------------------------------------- data feed
+
+def _small_pack(tmp_path, num_scans=6, insts=(5, 5)):
+    """A split of ``num_scans`` PLY scans packed by the port (one bucket
+    when every scan has 5 instances)."""
+    from vlsat_tpu_torch.data.dataset import SSGScenes
+    from vlsat_tpu_torch.data.packed import PackedScenes, pack_scenes
+    from vlsat_tpu_torch.data.synthetic import make_synthetic_split
+
+    root, scans, _ = make_synthetic_split(str(tmp_path / "split"), num_scans=num_scans,
+                                          insts_per_scan=insts, vertices_per_inst=80,
+                                          rels_per_scan=(2, 6), seed=1, write_ply=True)
+    pack_scenes(SSGScenes(root, scans, "validation_scans", num_points=32, feat_dim=64),
+                str(tmp_path / "pack"), seed=1)
+    return PackedScenes(str(tmp_path / "pack"))
+
+
+def test_resident_gather_on_card_equals_host_rows(dev, tmp_path):
+    from vlsat_tpu_torch.data.resident import ResidentEvalLoader, ResidentScenes, gather_rows
+
+    packed = _small_pack(tmp_path, num_scans=12, insts=(4, 12))
+    resident = ResidentScenes(packed, device=dev)
+    for b in packed.buckets:
+        full = resident.full_batch(b)
+        assert full.obj_points.device.type == "cuda" and full.obj_points.dtype == torch.float32
+        rows = np.random.RandomState(b).permutation(packed.count(b)).astype(np.int32)
+        got = gather_rows(full, torch.from_numpy(rows).to(dev))
+        want = packed.batch(b, rows)
+        for f, w in vars(want).items():
+            if w is not None:
+                assert torch.equal(getattr(got, f).cpu(), w), (b, f)
+    for host, card in ResidentEvalLoader(resident, 5):
+        for f, w in vars(host).items():
+            if w is not None:
+                assert torch.equal(getattr(card, f).cpu(), w), f
+
+
+def test_grouped_evaluate_on_card_equals_per_batch(dev, tmp_path, monkeypatch):
+    """On the card, the grouped resident path (K batches, one copy per
+    group, a partial tail group) and the per-batch resident and streaming
+    paths give the same metrics; batches of equal shapes (6 scenes, B=3)."""
+    from vlsat_tpu_torch.data.packed import PackedLoader
+    from vlsat_tpu_torch.data.resident import (ResidentEvalLoader, ResidentGroupedEval,
+                                               ResidentScenes)
+    from vlsat_tpu_torch.eval.engine import evaluate
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    monkeypatch.setenv("VLSAT_WIRE_DTYPE", "float32")
+    packed = _small_pack(tmp_path)
+    cfg = MMGNetConfig(point_feature_size=64, dim_node=64, dim_edge=64, dim_atten=32,
+                       num_heads=4, clip_feat_dim=64, fused_pointnet=True)
+    model = build_mmgnet(cfg, device=dev, seed=3)
+    step = make_eval_step(model, device=dev)
+    resident = ResidentScenes(packed, device=dev)
+    kw = dict(verbose=False, scene_recall=True)
+    want = evaluate(step, model.state_dict(), ResidentEvalLoader(resident, 3), **kw)
+    for loader in (ResidentGroupedEval(resident, 3, group=2),
+                   ResidentGroupedEval(resident, 3, group=3),
+                   PackedLoader(packed, batch_size=3)):
+        got = evaluate(step, model.state_dict(), loader, **kw)
+        assert sorted(got) == sorted(want)
+        for k, w in want.items():
+            assert (np.isnan(w) and np.isnan(got[k])) or got[k] == w, (type(loader), k)
+
+
+def test_server_pinned_path_equals_pageable_path(dev):
+    """BatchedServer's pinned, non-blocking copy gives the outputs of the
+    pageable copy it replaced, bit for bit, and the CPU's at the gate."""
+    from vlsat_tpu_torch.data.synthetic import make_scene
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.serving import BatchedServer
+
+    cfg = MMGNetConfig(num_obj_classes=20, num_rel_classes=7, point_feature_size=64,
+                       dim_node=64, dim_edge=64, dim_atten=32, num_heads=4, clip_feat_dim=64,
+                       fused_pointnet=True)
+    model = build_mmgnet(cfg, device=dev, seed=4)
+    rng = np.random.RandomState(0)
+    scenes = [{k: v for k, v in make_scene(rng, n, num_points=16, num_rel_classes=7).items()
+               if k in ("obj_points", "descriptor")} for n in (3, 7, 5, 11)]
+    runs = []
+    for pinned in (True, False):
+        server = BatchedServer(model, device=dev, max_batch=4, deadline_ms=50.0,
+                               num_rel_classes=7)
+        assert server._pin
+        server._pin = pinned
+        with server:
+            runs.append([f.result(timeout=120) for f in [server.submit(s) for s in scenes]])
+    with BatchedServer(model.cpu(), device="cpu", max_batch=4, deadline_ms=50.0,
+                       num_rel_classes=7) as server:
+        ref = [f.result(timeout=120) for f in [server.submit(s) for s in scenes]]
+    for got, want, cpu in zip(*runs, ref):
+        for key in ("obj_logits", "rel_cls"):
+            np.testing.assert_array_equal(got[key], want[key])
+            np.testing.assert_allclose(got[key], cpu[key], rtol=1e-3, atol=1e-4)

@@ -98,7 +98,8 @@ def test_bench_server_reports_rates():
 
 def test_port_imports_without_jax():
     """With jax, flax and vlsat_tpu blocked, every module of the port
-    imports (the walk reaches the eval/, train/, utils/ and data/ modules),
+    imports (the walk reaches the eval/, train/, utils/, config/, native/
+    and data/ modules, the data feed's included),
     serves a scene, evaluates two synthetic batches and takes two train
     steps with a checkpoint on the CPU."""
     code = """
@@ -112,7 +113,10 @@ for name in walked:
     importlib.import_module(name)
 for name in ("eval.engine", "eval.metrics", "eval.recall", "data.pipeline", "data.synthetic",
              "utils.progbar", "utils.seeding", "train.losses", "train.optim", "train.state",
-             "train.step", "train.checkpoint", "interop.from_flax"):
+             "train.step", "train.checkpoint", "interop.from_flax", "config.config",
+             "config.defaults", "data.assets", "data.weights", "data.ply", "data.augment",
+             "data.sampling", "data.dataset", "data.bucket_batch", "data.packed",
+             "data.resident", "native"):
     assert "vlsat_tpu_torch." + name in walked, name
 from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
 from vlsat_tpu_torch.serving import BatchedServer

@@ -9,9 +9,15 @@ device.  The rank tensors leave the device as ONE byte buffer, copied with
 assembles batch k while the device runs batch k+1, in the loader's scene
 order, which is the reference's accumulation order.
 
-Not ported: the K-batch grouped resident scan (``_get_fused_grouped``) and
-the per-bucket eval batch table (they belong to the data-feed slice), and
-the 128-lane chunk trim (a TPU layout effect).
+A loader yields host batches (streamed: wire-encoded, pinned and copied to
+the device), ``(host, device)`` pairs (``data/resident.py``
+``ResidentEvalLoader``: no per-batch copy) or, with ``loader.grouped``,
+``(hosts, full, idx)`` groups (``ResidentGroupedEval``, the counterpart of
+``_get_fused_grouped``, ``vlsat_tpu/eval/engine.py:218-255``): K
+minibatches gathered on the device from a resident bucket run back to back
+and their packed buffers leave in one (K, n) copy.
+
+Not ported: the 128-lane chunk trim (a TPU layout effect).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from vlsat_tpu_torch.data.pipeline import Prefetcher
+from vlsat_tpu_torch.data.resident import gather_rows
 from vlsat_tpu_torch.data.wire import encode_wire
 from vlsat_tpu_torch.eval.metrics import (
     compute_mean_predicate,
@@ -141,14 +148,34 @@ def _pin(batch: SceneBatch) -> SceneBatch:
                             if v is not None})
 
 
+class _PinnedRing:
+    """Reused page-locked host buffers for the packed device-to-host copies.
+    Slot i serves items i, i + n, ...; ``evaluate`` keeps at most two items
+    undrained, so a slot is never refilled before its item was assembled."""
+
+    def __init__(self, slots: int = 3):
+        self._bufs: List[Optional[torch.Tensor]] = [None] * slots
+        self._next = 0
+
+    def take(self, shape: Tuple[int, ...]) -> torch.Tensor:
+        i = self._next % len(self._bufs)
+        self._next += 1
+        n = int(np.prod(shape, dtype=np.int64))
+        if self._bufs[i] is None or self._bufs[i].numel() < n:
+            self._bufs[i] = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+        return self._bufs[i][:n].view(shape)
+
+
 def evaluate(eval_step, state, loader: Iterable, num_rel_classes: int = 26,
              train_triplet_vocab: Optional[set] = None, save_dir: Optional[str] = None,
              with_scores: bool = False, verbose: bool = True, total: Optional[int] = None,
              multi_rel: bool = True, scene_recall: bool = False) -> Dict[str, float]:
-    """Metric suite of ``eval_step(state, batch)`` over ``loader``'s host
-    ``SceneBatch``es (f32, on the CPU).  Batches go to ``eval_step.device``
+    """Metric suite of ``eval_step(state, batch)`` over ``loader``'s items:
+    host ``SceneBatch``es (f32, on the CPU), sent to ``eval_step.device``
     (``train.step.make_eval_step`` sets it; the CPU without it) wire-encoded,
-    from pinned memory on a card.
+    from pinned memory on a card; ``(host, device)`` pairs, run on the device
+    half and assembled from the host half; or, when ``loader.grouped`` is
+    true, ``(hosts, full, idx)`` groups of ``data.resident.ResidentGroupedEval``.
 
     Reports object / predicate / triplet Acc@k, per-class mean predicate
     accuracy and mean recall for the 3D branch, and for the 2D branch when
@@ -265,36 +292,60 @@ def evaluate(eval_step, state, loader: Iterable, num_rel_classes: int = 26,
             progbar.update(seen, [("Acc@1/obj", _pct("obj")), ("Acc@1/rel", _pct("rel")),
                                   ("Acc@50/trip", _pct("trip"))])
 
+    grouped = bool(getattr(loader, "grouped", False))
+
     def _prepare(it):
         # host side of the H2D copy, off the main thread: wire-encode and pin
-        for host in it:
-            wire = encode_wire(host)
-            yield host, (_pin(wire) if on_card else wire)
+        for item in it:
+            if grouped:
+                hosts, full, idx = item
+                idx = torch.from_numpy(np.ascontiguousarray(idx))
+                yield hosts, (full, idx.pin_memory() if on_card else idx)
+            elif isinstance(item, tuple):
+                yield item  # (host, device): nothing to copy
+            else:
+                wire = encode_wire(item)
+                yield item, (_pin(wire) if on_card else wire)
+
+    def _parts(dev_batch: SceneBatch) -> Tuple[torch.Tensor, list]:
+        out = eval_step(state, dev_batch)
+        return _pack(_metric_parts(out, dev_batch, single_label=not multi_rel,
+                                   with_scores=with_scores, scene_recall=scene_recall,
+                                   gt_cap=gt_cap))
 
     def _drain(entry) -> None:
-        buf, layout, event, host = entry
+        buf, layout, event, payload = entry
         if event is not None:
             event.synchronize()
-        _assemble(_unpack(buf.numpy(), layout), host)
+        if grouped:  # row j of the (K, n) buffer is batch j; tail rows are skipped
+            for j, host in enumerate(payload):
+                _assemble(_unpack(buf[j].numpy(), layout), host)
+        else:
+            _assemble(_unpack(buf.numpy(), layout), payload)
 
+    ring = _PinnedRing()
     pending: deque = deque()
-    for host, wire in Prefetcher(_prepare(loader), depth=2):
+    for payload, dev_in in Prefetcher(_prepare(loader), depth=2):
         with torch.inference_mode():
-            dev_batch = wire.to(dev, non_blocking=True)
-            out = eval_step(state, dev_batch)
-            parts = _metric_parts(out, dev_batch, single_label=not multi_rel,
-                                  with_scores=with_scores, scene_recall=scene_recall,
-                                  gt_cap=gt_cap)
-            flat, layout = _pack(parts)
+            if grouped:
+                full, idx = dev_in
+                rows = idx.to(dev, non_blocking=True)
+                flats = []
+                for k in range(rows.shape[0]):
+                    flat, layout = _parts(gather_rows(full, rows[k]))
+                    flats.append(flat)
+                flat = torch.stack(flats)
+            else:
+                flat, layout = _parts(dev_in.to(dev, non_blocking=True))
             event = None
             if flat.is_cuda:
-                buf = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+                buf = ring.take(tuple(flat.shape))
                 buf.copy_(flat, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record()
             else:
                 buf = flat
-        pending.append((buf, layout, event, host))
+        pending.append((buf, layout, event, payload))
         # batch k is assembled once batch k+1 is queued on the device
         while len(pending) > 1:
             _drain(pending.popleft())

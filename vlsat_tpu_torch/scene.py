@@ -3,7 +3,8 @@
 Counterpart of ``vlsat_tpu/scene.py``: ``SceneBatch`` (:60-117) with the same
 fields, shapes and dtypes, and the host helpers ``pick_bucket``,
 ``full_edge_index`` (:42-55), ``pad_scene`` with ``_SAFE_DESCRIPTOR``
-(:120-171) and ``collate`` (:214-240).  Scenes are padded to a node bucket;
+(:120-171), ``pad_batch_scenes`` (:174-211, host batches only) and
+``collate`` (:214-240).  Scenes are padded to a node bucket;
 padded entries are sanitized so that downstream ``log``/``norm`` calls stay
 finite, and the masks carry validity.
 """
@@ -140,6 +141,29 @@ def pad_scene(obj_points: np.ndarray, descriptor: np.ndarray,
         buf[:e] = rel_points
         out["rel_points"] = buf
     return out
+
+
+def pad_batch_scenes(batch: SceneBatch, total: int) -> SceneBatch:
+    """Grow a host SceneBatch to ``total`` scenes by appending fully-masked
+    pad scenes (all-False obj/edge masks, ``_SAFE_DESCRIPTOR`` descriptors so
+    that downstream logs stay finite).  Pad scenes contribute nothing to
+    losses or metrics; the grouped resident eval pads its tail batch so."""
+    b = batch.num_scenes
+    if total < b:
+        raise ValueError(f"total {total} < batch scenes {b}")
+    if total == b:
+        return batch
+    k = total - b
+
+    def pad(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if x is None:
+            return None
+        return torch.cat([x, x.new_zeros((k, *x.shape[1:]))])
+
+    desc = torch.from_numpy(np.tile(_SAFE_DESCRIPTOR, (k, batch.num_nodes, 1)))
+    kw = {f.name: pad(getattr(batch, f.name)) for f in dataclasses.fields(batch)}
+    kw["descriptor"] = torch.cat([batch.descriptor, desc.to(batch.descriptor)])
+    return SceneBatch(**kw)
 
 
 def collate(scenes: Sequence[dict], with_text: bool = False,

@@ -3,8 +3,10 @@
 Counterpart of ``vlsat_tpu/serving.py`` (``BatchedServer`` :34-179 and
 ``bench_server`` :294-331).  The server micro-batches incoming scenes up to
 ``max_batch`` within a ``deadline_ms`` budget, pads them to a shared node
-bucket, narrows the batch to the wire format, runs one eval step and
-resolves each scene's future with its unpadded predictions.  It serves the
+bucket, narrows the batch to the wire format, copies it to the card from
+pinned host memory with ``non_blocking`` (as ``eval.engine.evaluate`` does),
+runs one eval step and resolves each scene's future with its unpadded
+predictions.  It serves the
 3D-only branch, the JAX server's default (the paper's deployment protocol).
 """
 
@@ -43,6 +45,7 @@ class BatchedServer:
                  feat_dim: int = 512, num_rel_classes: int = 26,
                  pad_to_max: bool = True):
         dev = resolve_device(device)
+        self._pin = dev.type == "cuda"
         self._eval = make_eval_step(model, branch_3d_only=True, device=dev)
         state = model.state_dict() if state is None else state
         self._state = {k: v.to(dev) for k, v in state.items()}
@@ -142,6 +145,9 @@ class BatchedServer:
             while len(padded) < self.max_batch:
                 padded.append({k: np.zeros_like(v) for k, v in padded[0].items()})
         batch = encode_wire(collate(padded))
+        if self._pin:  # the eval step's copy to the card is then asynchronous
+            batch = batch.replace(**{k: v.pin_memory() for k, v in vars(batch).items()
+                                     if v is not None})
         out = self._eval(self._state, batch)
         ol = out["obj_logits_3d"].cpu().numpy()
         rc = out["rel_cls_3d"].cpu().numpy()

@@ -24,6 +24,7 @@ from typing import Callable, Dict, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from vlsat_tpu_torch.data.resident import gather_rows
 from vlsat_tpu_torch.data.wire import decode_wire
 from vlsat_tpu_torch.device import resolve_device
 from vlsat_tpu_torch.models.mmgnet import MMGNet
@@ -133,6 +134,47 @@ def make_multi_train_step(model: MMGNet, optimizer: OptimizerSpec, lambda_o: flo
 
     multi_step.device = step.device
     return multi_step
+
+
+def make_resident_multi_train_step(model: MMGNet, optimizer: OptimizerSpec,
+                                   split_batch: SceneBatch = None, batch_size: int = 8,
+                                   lambda_o: float = 0.1, objective=None, text_table=None,
+                                   device=None):
+    """K train steps per call over a resident split (counterpart of
+    ``vlsat_tpu/train/step.py:146-194``).
+
+    ``split_batch``: a whole packed bucket on the device
+    (``data.resident.ResidentScenes.full_batch``).  The returned
+    ``fn(state, perm, rng)`` takes a (K*B,) int32 permutation of scene rows
+    (``data.resident.epoch_permutations``), reshapes it to (K, B), and step
+    i gathers its minibatch on the device (``gather_rows``), expands its
+    ``rel_text_idx`` from ``text_table`` and takes dropout seed
+    ``fold_in(rng, i)``: the steps, losses and weights of
+    ``make_multi_train_step`` fed the same rows.  Only the permutation
+    crosses to the device.  ``split_batch=None`` gives the unbound form
+    ``fn(state, split_batch, perm, rng)``, which serves every bucket and
+    pack variant.  ``aux`` as in ``make_multi_train_step``."""
+    step = make_train_step(model, optimizer, lambda_o=lambda_o, objective=objective,
+                           text_table=text_table, device=device)
+
+    def multi(state: TrainState, split: SceneBatch, perm, rng: int
+              ) -> Tuple[TrainState, Aux]:
+        if len(perm) % batch_size:
+            raise ValueError(f"{len(perm)} rows do not split into batches of {batch_size}")
+        rows = torch.as_tensor(perm).to(step.device, non_blocking=True).reshape(-1, batch_size)
+        losses = []
+        for i in range(rows.shape[0]):
+            state, aux = step(state, gather_rows(split, rows[i]), fold_in(rng, i))
+            losses.append(aux["loss"])
+        losses = torch.stack(losses)
+        return state, {"loss": losses[-1], "losses": losses}
+
+    multi.device = step.device
+    if split_batch is None:
+        return multi
+    bound = lambda state, perm, rng: multi(state, split_batch, perm, rng)
+    bound.device = step.device
+    return bound
 
 
 def make_eval_step(model: MMGNet, branch_3d_only: bool = False, device=None
