@@ -66,16 +66,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
     group's losses within 1e-6 relative of ``make_multi_train_step``'s on
     the same rows (dropout off), trained scenes/s of both, step wall ms and
     idle share; and a sweep of B in {16, 32, 64} over the grouped path at
-    buckets 8 and 12 (the port's ``DEFAULT_EVAL_BATCH`` entries).
+    buckets 8 and 12 (the port's ``DEFAULT_EVAL_BATCH`` entries);
+11. the runner and the CLI, over phase 10's PLY split (removed after this
+    phase): a ``TripletTextCache`` of the train split's sentences from
+    ``HashTextEncoder``; one experiment JSON at the full MODEL width (B=8,
+    2 epochs, validation every epoch, ``EVAL_BATCH_SIZE="auto"``,
+    ``TRAIN_MICROSTEPS`` 4, resident train and eval splits, ``EVAL_GROUP``
+    4); ``python -m vlsat_tpu_torch.tools.pack_dataset`` in a subprocess;
+    ``vlsat_tpu_torch.main.main`` in this process for ``--mode train``
+    (every launch counter at 0 just before: segment-max exactly 4 times per
+    evaluated batch of the 3 validations, none in a train step, no
+    PointNet; 2 epoch rows with the card's peak memory, finite logged
+    losses, the latest and best checkpoints and ``result.txt``) and
+    ``--mode eval`` (its metrics equal to the train run's closing
+    validation, no tolerance; 4 segment-max launches per batch); then
+    ``python -m vlsat_tpu_torch.main --mode serve --port 0`` in a
+    subprocess: its first 4 answers (one request at a time, before the
+    load) held against the CPU's eval step on the checkpoint's weights at
+    the model gate, then 8 HTTP client threads for a few seconds (scenes/s,
+    p50 / p99 latency), ``/healthz`` counting every request, 400 on a
+    payload without ``descriptor``, and exit code 0 within 30 s of SIGINT.
 
-The last lines are a JSON ``kernels`` line, the card's name and power limit
-as nvidia-smi reports them, and ``{"ok": true, "device": {...}}``.
+The last lines are a JSON ``kernels`` line (with each kernel's launches in
+every phase), the card's name and power limit as nvidia-smi reports them,
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import io
 import json
 import os
 import shutil
@@ -101,6 +122,11 @@ FEED_SCANS = 548           # scan-splits of the 3DSSG validation split
 VERTS_PER_INST = 3000      # vertices of each annotated instance's mesh
 BG_VERTS = 20000           # unlabelled vertices of each scan
 WORK = Path(__file__).resolve().parent / ".chip_work" / "data_feed"
+RUN_WORK = WORK.parent / "runner"
+RUNNER_EPOCHS = 2          # epochs of the runner phase
+RUNNER_CLIENTS = 8         # HTTP client threads of the runner phase
+RUNNER_HTTP_S = 4.0        # seconds of HTTP load
+PAYLOAD = ("obj_points", "descriptor", "obj_2d_feats")  # what a /predict client sends
 
 
 def log(msg: str) -> None:
@@ -910,15 +936,29 @@ def tail_output_diff(step, state, resident, batch: int) -> float:
     return worst
 
 
+def feed_split() -> tuple:
+    """(root, scans_root, node counts, relation counts) of the data feed's
+    PLY split, written under WORK on the first call (later calls with the
+    same parameters reuse it)."""
+    from vlsat_tpu_torch.data.synthetic import make_synthetic_split, validation_scene_stats
+
+    nodes, rels = validation_scene_stats(FEED_SCANS, seed=SEED + 6)
+    root, scans, _ = make_synthetic_split(
+        str(WORK / "split"), num_scans=FEED_SCANS, node_counts=nodes, rel_counts=rels,
+        vertices_per_inst=VERTS_PER_INST, seed=SEED + 6, write_ply=True,
+        background_verts=BG_VERTS)
+    return root, scans, nodes, rels
+
+
 def data_feed(model, dev, cfg) -> dict:
-    """Phase 10: the data feed on the card."""
+    """Phase 10: the data feed on the card.  Its PLY split stays under WORK
+    for phase 11."""
     from vlsat_tpu_torch import native
     from vlsat_tpu_torch.data.dataset import SSGScenes
     from vlsat_tpu_torch.data.packed import PackedLoader, PackedScenes, pack_scenes
     from vlsat_tpu_torch.data.resident import (ResidentEvalLoader, ResidentGroupedEval,
                                                ResidentScenes, epoch_permutations,
                                                split_nbytes)
-    from vlsat_tpu_torch.data.synthetic import make_synthetic_split, validation_scene_stats
     from vlsat_tpu_torch.eval.engine import evaluate
     from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
     from vlsat_tpu_torch.train.optim import make_optimizer
@@ -929,12 +969,8 @@ def data_feed(model, dev, cfg) -> dict:
     shutil.rmtree(WORK, ignore_errors=True)
     out: dict = {}
     # 1. the split, from PLY files, through the native parser into a pack
-    nodes, rels = validation_scene_stats(FEED_SCANS, seed=SEED + 6)
     t0 = time.monotonic()
-    root, scans, _ = make_synthetic_split(
-        str(WORK / "split"), num_scans=FEED_SCANS, node_counts=nodes, rel_counts=rels,
-        vertices_per_inst=VERTS_PER_INST, seed=SEED + 6, write_ply=True,
-        background_verts=BG_VERTS)
+    root, scans, nodes, rels = feed_split()
     split_s = time.monotonic() - t0
     ply_bytes = sum(f.stat().st_size for f in Path(scans).rglob("*.ply"))
     lib = native.load()
@@ -1145,6 +1181,278 @@ def data_feed(model, dev, cfg) -> dict:
     out["eval_batch_sweep"] = {"runs": sweep, "best": best}
     log(f"data feed: fastest eval batch per bucket {best}")
     out["launches"] = launches
+    return out
+
+
+def http_request(port: int, path: str, body: bytes = None, timeout: float = 120.0) -> tuple:
+    """(status, body) of one request to the serve subprocess."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def npz_bytes(**arrays) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def eval_rows(packed, batch_spec, group: int) -> int:
+    """Batches one grouped resident validation pass computes: each bucket's
+    batches, rounded up to whole groups of ``group``."""
+    from vlsat_tpu_torch.data.bucket_batch import resolve_batch
+
+    rows = 0
+    for b in packed.buckets:
+        batches = -(-packed.count(b) // resolve_batch(batch_spec, b))
+        rows += -(-batches // group) * group
+    return rows
+
+
+def differing_metrics(a: dict, b: dict) -> list:
+    """Keys on which two metric dicts differ (NaN equal to NaN)."""
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b
+                  or not (a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k]))))
+
+
+def serve_clients(port: int, payloads: list, seconds: float, clients: int) -> dict:
+    """``clients`` threads post random payloads back to back for ``seconds``."""
+    lat, errors = [], []
+    lock = threading.Lock()
+    stop = time.monotonic() + seconds
+
+    def client(i):
+        rng = np.random.RandomState(100 + i)
+        local = []
+        try:
+            while time.monotonic() < stop:
+                t0 = time.monotonic()
+                code, body = http_request(port, "/predict", payloads[rng.randint(len(payloads))])
+                local.append(time.monotonic() - t0)
+                if code != 200:
+                    raise RuntimeError(f"/predict answered {code}: {body[:200]!r}")
+        except Exception as e:  # reported below, fails the run
+            errors.append(e)
+        with lock:
+            lat.extend(local)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=seconds + 300)
+    wall = time.monotonic() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"runner, serve: clients failed: {errors[:3]!r}")
+    arr = np.asarray(lat) * 1e3
+    return {"requests": len(lat), "wall_s": wall, "scenes_per_sec": len(lat) / wall,
+            "p50_latency_ms": float(np.percentile(arr, 50)),
+            "p99_latency_ms": float(np.percentile(arr, 99)), "clients": clients}
+
+
+def runner(dev) -> dict:
+    """Phase 11: the runner and the CLI on the card, over phase 10's split."""
+    import signal
+
+    from vlsat_tpu_torch.clipsem import HashTextEncoder, TripletTextCache
+    from vlsat_tpu_torch.config import load_config
+    from vlsat_tpu_torch.data.assets import build_index, read_classes, read_relationships
+    from vlsat_tpu_torch.data.bucket_batch import DEFAULT_EVAL_BATCH
+    from vlsat_tpu_torch.data.dataset import SSGScenes
+    from vlsat_tpu_torch.data.packed import PackedScenes
+    from vlsat_tpu_torch.main import main as cli
+    from vlsat_tpu_torch.serving import BatchedServer
+    from vlsat_tpu_torch.train.checkpoint import CheckpointManager
+    from vlsat_tpu_torch.train.runner import Runner
+
+    root, scans, _, _ = feed_split()
+    shutil.rmtree(RUN_WORK, ignore_errors=True)
+    RUN_WORK.mkdir(parents=True)
+    out: dict = {}
+    # 1. the triplet text cache over the train split
+    t0 = time.monotonic()
+    index = build_index(root, "train_scans")
+    cache = TripletTextCache(read_classes(root), read_relationships(root)[1:])
+    sentences = cache.sentences_for_index(index.scenes)
+    cache.build(sentences, HashTextEncoder())
+    cache.save(str(RUN_WORK / "triplets.npz"))
+    out["text_cache"] = {"sentences": len(sentences), "build_s": time.monotonic() - t0}
+    # 2. one experiment JSON at the full MODEL width
+    cfg_path = RUN_WORK / "cfg.json"
+    cfg_path.write_text(json.dumps({
+        "NAME": "Mmgnet", "PATH": str(RUN_WORK / "out"), "SEED": SEED, "Batch_Size": TRAIN_BATCH,
+        "MAX_EPOCHES": RUNNER_EPOCHS, "VALID_INTERVAL": 1, "LOG_INTERVAL": 10,
+        "EVAL_BATCH_SIZE": "auto", "TRAIN_MICROSTEPS": TRAIN_GROUP, "TRAIN_RESIDENT": "auto",
+        "EVAL_RESIDENT": "auto", "EVAL_GROUP": EVAL_GROUP,
+        "MODEL": {"triplet_text_cache": str(RUN_WORK / "triplets.npz")},
+        "dataset": {"root": root, "scans_root": scans, "packed_root": str(RUN_WORK / "pack")}}))
+    cfg = load_config(str(cfg_path))
+    here = Path(__file__).resolve().parent
+    # 3. the pack tool, as a user runs it
+    t0 = time.monotonic()
+    res = subprocess.run([sys.executable, "-m", "vlsat_tpu_torch.tools.pack_dataset",
+                          "--config", str(cfg_path)], cwd=here, capture_output=True, text=True,
+                         timeout=600)
+    out["pack_s"] = time.monotonic() - t0
+    if res.returncode:
+        fail(f"runner: pack_dataset exited {res.returncode}: {res.stderr[-2000:]}")
+    valid = PackedScenes(str(RUN_WORK / "pack" / "validation"))
+    train_pack = PackedScenes(str(RUN_WORK / "pack" / "train"))
+    rows = eval_rows(valid, DEFAULT_EVAL_BATCH, EVAL_GROUP)
+    out["pack"] = {"train_scenes": len(train_pack), "validation_scenes": len(valid),
+                   "text_table_rows": int(train_pack.text_table.shape[0]),
+                   "eval_rows_per_validation": rows}
+    log(f"runner: text cache of {len(sentences)} sentences in "
+        f"{out['text_cache']['build_s']:.2f} s; pack_dataset in {out['pack_s']:.1f} s "
+        f"({len(train_pack)} train / {len(valid)} validation scenes)")
+
+    # 4. train through the CLI's entry, with every launch counter at 0 just before
+    exp = Path(cfg.PATH) / "Mmgnet" / "default"
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    train_metrics = cli(["--config", str(cfg_path), "--mode", "train"])
+    out["train_command_s"] = time.monotonic() - t0
+    train_launches = read_launches()
+    validations = RUNNER_EPOCHS + 1  # one per epoch, then the closing validation(save=True)
+    if train_launches != {"segment_max": 4 * rows * validations, "pointnet_fused": 0,
+                          "pointnet_fused_v2": 0}:
+        fail(f"runner, train: launches {train_launches}; want {4 * rows * validations} "
+             f"segment-max ({validations} validations of {rows} batches, 4 each, none in a "
+             "train step) and no PointNet")
+    with open(exp / "epoch_stats.jsonl") as f:
+        epochs = [json.loads(line) for line in f]
+    if len(epochs) != RUNNER_EPOCHS or any(
+            not (r.get("scenes_per_sec", 0) > 0 and r.get("hbm_peak_mb", 0) > 0) for r in epochs):
+        fail(f"runner, train: epoch rows {epochs}")
+    with open(Path(cfg.PATH) / "logs" / "Mmgnet" / "default" / "events.jsonl") as f:
+        losses = [r["train/loss"] for r in map(json.loads, f) if "train/loss" in r]
+    if not losses or not np.isfinite(losses).all():
+        fail(f"runner, train: logged train/loss {losses}")
+    ckpt = CheckpointManager(str(exp / "checkpoints"))
+    result_txt = Path(cfg.PATH) / "results" / "Mmgnet" / "default" / "result.txt"
+    if ckpt.latest_step is None or ckpt.best_step is None or not result_txt.exists():
+        fail(f"runner, train: latest {ckpt.latest_step}, best {ckpt.best_step}, "
+             f"result.txt {result_txt.exists()}")
+    out["epochs"] = [{**r, "train_only_scenes_per_sec": r["scenes"] / (r["wall_s"] - r["val_wall_s"]),
+                      "val_scenes_per_sec": len(valid) / r["val_wall_s"]} for r in epochs]
+    out["train"] = {"steps": ckpt.latest_step, "logged_losses": [losses[0], losses[-1]],
+                    "launches": train_launches, "peak_memory_gib":
+                    torch.cuda.max_memory_allocated() / 2**30}
+    for r in out["epochs"]:
+        log(f"runner, train epoch {r['epoch']}: {r['scenes']} scenes, wall {r['wall_s']} s "
+            f"with validation ({r['scenes_per_sec']} scenes/s; "
+            f"{r['train_only_scenes_per_sec']:.1f} without), validation {r['val_wall_s']} s "
+            f"({r['val_scenes_per_sec']:.1f} scenes/s), peak {r['hbm_peak_mb']} MB")
+
+    # 5. eval through the CLI's entry on the latest checkpoint: the same metrics
+    reset_launches()
+    t0 = time.monotonic()
+    eval_metrics = cli(["--config", str(cfg_path), "--mode", "eval"])
+    out["eval_command_s"] = time.monotonic() - t0
+    eval_launches = read_launches()
+    differ = differing_metrics(eval_metrics, train_metrics)
+    if differ or eval_launches["segment_max"] != 4 * rows or eval_launches["pointnet_fused"]:
+        fail(f"runner, eval: metrics differing from the closing validation on {differ}; "
+             f"launches {eval_launches} (want {4 * rows} segment-max)")
+    out["eval"] = {"metrics": len(eval_metrics), "launches": eval_launches,
+                   "mean_recall_50": eval_metrics["mean_recall_50"],
+                   "command_scenes_per_sec": len(valid) / out["eval_command_s"]}
+    log(f"runner, eval: {len(eval_metrics)} metrics equal to the closing validation's; "
+        f"command {out['eval_command_s']:.1f} s; launches {eval_launches}")
+
+    # 6. serve through the CLI in a subprocess, held against the CPU
+    vs = SSGScenes(root, scans, "validation_scans")
+    picks = [vs.prepare(i, np.random.RandomState(i)) for i in range(0, len(vs), 17)]
+    payloads = [npz_bytes(**{f: p[f] for f in PAYLOAD}) for p in picks]
+    proc = subprocess.Popen([sys.executable, "-m", "vlsat_tpu_torch.main", "--mode", "serve",
+                             "--port", "0", "--config", str(cfg_path)], cwd=here,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+    ready = threading.Event()
+
+    def drain():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving on http://"):
+                ready.set()
+
+    reader = threading.Thread(target=drain, daemon=True)
+    reader.start()
+    try:
+        t0 = time.monotonic()
+        if not ready.wait(timeout=300):
+            fail(f"runner, serve: no 'serving on' line; output {''.join(lines)[-2000:]}")
+        startup_s = time.monotonic() - t0
+        line = next(l for l in lines if l.startswith("serving on http://"))
+        port = int(line.split("http://", 1)[1].split()[0].rsplit(":", 1)[1])
+        # the first 4 scenes one at a time: the server's first batches (its
+        # CUDA start) stay out of the timed load, and their answers are checked
+        answers, first_ms = [], []
+        for body in payloads[:4]:
+            t0 = time.monotonic()
+            code, got = http_request(port, "/predict", body)
+            first_ms.append((time.monotonic() - t0) * 1e3)
+            if code != 200:
+                fail(f"runner, serve: /predict answered {code}: {got[:200]!r}")
+            with np.load(io.BytesIO(got)) as z:
+                answers.append({f: z[f] for f in z.files})
+        bench = serve_clients(port, payloads, RUNNER_HTTP_S, RUNNER_CLIENTS)
+        code, health = http_request(port, "/healthz")
+        health = json.loads(health)
+        if code != 200 or health["scenes"] != bench["requests"] + len(answers):
+            fail(f"runner, serve: /healthz {code} {health} after "
+                 f"{bench['requests'] + len(answers)} requests")
+        code, err = http_request(port, "/predict", npz_bytes(obj_points=picks[0]["obj_points"]))
+        if code != 400 or not json.loads(err)["error"].startswith("ValueError"):
+            fail(f"runner, serve: a payload without descriptor got {code} {err[:200]!r}")
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            fail("runner, serve: the server did not stop within 30 s of SIGINT")
+        if rc != 0:
+            fail(f"runner, serve: exit code {rc} after SIGINT; output {''.join(lines)[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    reader.join(timeout=10)
+    cpu = Runner(load_config(str(cfg_path), {"MODE": "serve"}), device="cpu")
+    try:
+        if not cpu.load():
+            fail("runner, serve: no checkpoint for the CPU reference")
+        with BatchedServer(cpu.model, cpu.state.model.state_dict(), device="cpu",
+                           branch_3d_only=False, max_batch=1, pad_to_max=False,
+                           buckets=tuple(cfg.dataset.node_buckets),
+                           num_rel_classes=cpu.num_rel) as server:
+            for k, got in enumerate(answers):
+                want = server.predict({f: picks[k][f] for f in PAYLOAD}, timeout=600)
+                for key in ("obj_logits", "rel_cls"):
+                    if not np.allclose(got[key], want[key], rtol=1e-3, atol=1e-4):
+                        fail(f"runner, serve: {key} of scene {k} differs from the CPU: max abs "
+                             f"{np.abs(got[key] - want[key]).max()}")
+    finally:
+        cpu.close()
+    out["serve"] = {**bench, "startup_s": startup_s, "first_requests_ms": first_ms,
+                    "batches": health["batches"],
+                    "mean_batch_size": health["mean_batch_size"], "exit_code": rc}
+    log(f"runner, serve: first 4 requests alone in {[round(t, 1) for t in first_ms]} ms; "
+        f"then {bench['requests']} requests from {RUNNER_CLIENTS} clients in "
+        f"{bench['wall_s']:.1f} s ({bench['scenes_per_sec']:.1f} scenes/s, p50 "
+        f"{bench['p50_latency_ms']:.1f} / p99 {bench['p99_latency_ms']:.1f} ms, mean batch "
+        f"{health['mean_batch_size']:.1f}); answers for 4 scenes match the CPU (rtol 1e-3, "
+        f"atol 1e-4); 400 on a bad payload; exit 0 after SIGINT")
+    out["launches"] = {k: train_launches[k] + eval_launches[k] for k in train_launches}
+    shutil.rmtree(RUN_WORK, ignore_errors=True)
     shutil.rmtree(WORK, ignore_errors=True)
     return out
 
@@ -1245,6 +1553,12 @@ def main() -> None:
         if feed["launches"][name] <= 0:
             fail(f"the data-feed evaluation never launched the {name} kernel")
     log(json.dumps({"data_feed": feed}))
+
+    # 11. the runner and the CLI
+    run = runner(dev)
+    for k in kernels:
+        k["launches_runner"] = run["launches"].get(k["name"], 0)
+    log(json.dumps({"runner": run}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

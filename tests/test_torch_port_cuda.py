@@ -512,3 +512,46 @@ def test_server_pinned_path_equals_pageable_path(dev):
         for key in ("obj_logits", "rel_cls"):
             np.testing.assert_array_equal(got[key], want[key])
             np.testing.assert_allclose(got[key], cpu[key], rtol=1e-3, atol=1e-4)
+
+
+# ------------------------------------------------------------------ runner
+
+def test_runner_epoch_and_validation_on_card(dev, tmp_path):
+    """``train.runner.Runner`` on the card: one epoch over a packed split
+    (the resident multi-step) and its validation (the grouped resident
+    loader); the validation launches segment-max on the card (4 launches a
+    batch, dual branch) and training launches none, and the epoch row
+    carries the card's memory."""
+    import json
+
+    from vlsat_tpu_torch.config import load_config
+    from vlsat_tpu_torch.data.synthetic import make_synthetic_split
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+    from vlsat_tpu_torch.tools.pack_dataset import main as pack_main
+    from vlsat_tpu_torch.train.runner import Runner
+
+    root, scans, _ = make_synthetic_split(str(tmp_path / "split"), num_scans=10,
+                                          insts_per_scan=(4, 10), vertices_per_inst=60,
+                                          rels_per_scan=(2, 6), seed=2, write_ply=True)
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(json.dumps({
+        "PATH": str(tmp_path / "out"), "MAX_EPOCHES": 1, "Batch_Size": 2, "VALID_INTERVAL": 1,
+        "TRAIN_MICROSTEPS": 2, "EVAL_BATCH_SIZE": 3,
+        "MODEL": {"N_LAYERS": 1, "DIM_ATTEN": 64, "NUM_HEADS": 2},
+        "dataset": {"root": root, "scans_root": scans, "num_points": 32,
+                    "packed_root": str(tmp_path / "pack")}}))
+    pack_main(["--config", str(cfg_path)])
+    runner = Runner(load_config(str(cfg_path), {"MODE": "train"}))
+    try:
+        assert runner.device.type == "cuda"
+        runner.load(allow_fallback=True)
+        segment_max.launches = pointnet_kernel.launches = 0
+        runner.train()
+        assert runner.state.step > 0
+        assert segment_max.launches > 0 and segment_max.launches % 4 == 0
+        assert pointnet_kernel.launches == 0
+    finally:
+        runner.close()
+    with open(tmp_path / "out" / "Mmgnet" / "default" / "epoch_stats.jsonl") as f:
+        row = json.loads(f.readline())
+    assert row["hbm_peak_mb"] > 0 and np.isfinite(row["mean_recall_50"])

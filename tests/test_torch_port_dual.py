@@ -32,6 +32,12 @@ CASES = {
     "bucket12": (dict(NARROW), 12, (9, 12), 16),
     "bucket16": (dict(NARROW), 16, (13, 16, 6), 8),
     "full_width": ({}, 8, (6, 8), 32),
+    # the config keys the registry wires (MODEL.GCN_AGGR, USE_GCN_EDGE,
+    # multi_rel_outputs)
+    "gcn_aggr_add": (dict(NARROW, gcn_aggr="add"), 8, (5, 8, 3), 16),
+    "gcn_aggr_mean": (dict(NARROW, gcn_aggr="mean"), 8, (5, 8, 3), 16),
+    "no_gcn_edge": (dict(NARROW, use_gcn_edge=False), 8, (5, 8, 3), 16),
+    "single_label": (dict(NARROW, multi_rel_outputs=False), 8, (5, 8, 3), 16),
 }
 
 
@@ -66,7 +72,8 @@ def _assert_live_rows_match(got, want, batch):
 
 @pytest.mark.parametrize("case,fused", [
     ("bucket8", False), ("bucket8", True), ("bucket12", False), ("bucket12", True),
-    ("bucket16", False), ("full_width", True)])
+    ("bucket16", False), ("full_width", True), ("gcn_aggr_add", False),
+    ("gcn_aggr_mean", False), ("no_gcn_edge", False), ("single_label", False)])
 def test_dual_forward_matches_jax(case, fused):
     batch, want, got, got_3d = _run(case, fused)
     _assert_live_rows_match(got, want, batch)

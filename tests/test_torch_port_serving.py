@@ -86,6 +86,24 @@ def test_port_server_matches_jax_server(monkeypatch, wire):
             np.testing.assert_allclose(g[key], w[key], rtol=RTOL, atol=ATOL, err_msg=key)
 
 
+@pytest.mark.parametrize("branch_key", ["3d", "2d"])
+def test_port_server_dual_forward_matches_jax_server(monkeypatch, branch_key):
+    """``branch_3d_only=False`` (the runner's default serving forward) with
+    either branch's outputs, against the JAX server's ``branch_key``."""
+    monkeypatch.setenv("VLSAT_WIRE_DTYPE", "float32")
+    fmodel, params, stats, cfg, state = _setup()
+    scenes = _scenes()
+    kw = dict(max_batch=4, deadline_ms=50.0, num_rel_classes=7, feat_dim=64,
+              branch_key=branch_key)
+    want = _serve(FlaxServer(flax_eval_step(fmodel), params, stats, **kw), scenes)
+    got = _serve(BatchedServer(MMGNet(cfg), state, device="cpu", branch_3d_only=False, **kw),
+                 scenes)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["edge_index"], w["edge_index"])
+        for key in ("obj_logits", "rel_cls"):
+            np.testing.assert_allclose(g[key], w[key], rtol=RTOL, atol=ATOL, err_msg=key)
+
+
 def test_bench_server_reports_rates():
     _, _, _, cfg, state = _setup()
     server = BatchedServer(MMGNet(cfg), state, device="cpu", max_batch=4,
@@ -98,10 +116,12 @@ def test_bench_server_reports_rates():
 
 def test_port_imports_without_jax():
     """With jax, flax and vlsat_tpu blocked, every module of the port
-    imports (the walk reaches the eval/, train/, utils/, config/, native/
-    and data/ modules, the data feed's included),
-    serves a scene, evaluates two synthetic batches and takes two train
-    steps with a checkpoint on the CPU."""
+    imports (the walk reaches the eval/, train/, utils/, config/, native/,
+    data/, clipsem/ and tools/ modules, the data feed's, the runner's and
+    the CLI's included),
+    serves a scene, evaluates two synthetic batches, takes two train
+    steps with a checkpoint, and trains one epoch through the CLI
+    (``main --mode train --device cpu``) on a synthetic split, on the CPU."""
     code = """
 import sys, importlib, pkgutil
 for name in ("jax", "jaxlib", "flax", "optax", "vlsat_tpu"):
@@ -116,7 +136,9 @@ for name in ("eval.engine", "eval.metrics", "eval.recall", "data.pipeline", "dat
              "train.step", "train.checkpoint", "interop.from_flax", "config.config",
              "config.defaults", "data.assets", "data.weights", "data.ply", "data.augment",
              "data.sampling", "data.dataset", "data.bucket_batch", "data.packed",
-             "data.resident", "native"):
+             "data.resident", "native", "main", "train.runner", "models.registry",
+             "clipsem.prompts", "clipsem.text_tables", "utils.logging",
+             "tools.pack_dataset"):
     assert "vlsat_tpu_torch." + name in walked, name
 from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
 from vlsat_tpu_torch.serving import BatchedServer
@@ -155,6 +177,24 @@ assert state.step == 2 and bool(aux["loss"].isfinite())
 with tempfile.TemporaryDirectory() as d:
     CheckpointManager(d).save(state, eva_res=0.5)
     assert CheckpointManager(d).restore(state, best=True).step == 2
+import json, os
+from vlsat_tpu_torch.data.synthetic import make_synthetic_split
+from vlsat_tpu_torch.main import main
+with tempfile.TemporaryDirectory() as d:
+    root, scans, cache = make_synthetic_split(os.path.join(d, "split"), num_scans=4,
+                                              insts_per_scan=(3, 5), vertices_per_inst=40,
+                                              rels_per_scan=3)
+    cfg = {"PATH": os.path.join(d, "out"), "MAX_EPOCHES": 1, "Batch_Size": 2,
+           "VALID_INTERVAL": 1, "MODEL": {"N_LAYERS": 1, "DIM_ATTEN": 32, "NUM_HEADS": 2},
+           "dataset": {"root": root, "scans_root": scans, "cache_root": cache,
+                       "num_points": 8}}
+    with open(os.path.join(d, "cfg.json"), "w") as f:
+        json.dump(cfg, f)
+    metrics = main(["--config", os.path.join(d, "cfg.json"), "--mode", "train",
+                    "--device", "cpu"])
+    assert "mean_recall_50" in metrics
+    with open(os.path.join(d, "out", "Mmgnet", "default", "epoch_stats.jsonl")) as f:
+        assert json.loads(f.readline())["step"] == 2
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "vlsat_tpu")
        and sys.modules[m] is not None]
 assert not bad, bad

@@ -1,17 +1,24 @@
-"""Batched-queue serving loop for scene-graph prediction.
+"""Batched-queue serving loop for scene-graph prediction, and its HTTP
+transport.
 
-Counterpart of ``vlsat_tpu/serving.py`` (``BatchedServer`` :34-179 and
-``bench_server`` :294-331).  The server micro-batches incoming scenes up to
-``max_batch`` within a ``deadline_ms`` budget, pads them to a shared node
-bucket, narrows the batch to the wire format, copies it to the card from
-pinned host memory with ``non_blocking`` (as ``eval.engine.evaluate`` does),
-runs one eval step and resolves each scene's future with its unpadded
-predictions.  It serves the
-3D-only branch, the JAX server's default (the paper's deployment protocol).
+Counterpart of ``vlsat_tpu/serving.py`` (``BatchedServer`` :34-179,
+``HTTPFrontend`` :182-291 and ``bench_server`` :294-331).  The server
+micro-batches incoming scenes up to ``max_batch`` within a ``deadline_ms``
+budget, pads them to a shared node bucket, narrows the batch to the wire
+format, copies it to the card from pinned host memory with ``non_blocking``
+(as ``eval.engine.evaluate`` does), runs one eval step and resolves each
+scene's future with its unpadded predictions.  By default it runs the 3D
+branch alone (the paper's deployment protocol); ``branch_3d_only=False``
+runs the dual forward, whose 3D outputs are the same.
+
+One worker thread owns every device call; the HTTP request threads only
+enqueue scenes and wait on their futures.
 """
 
 from __future__ import annotations
 
+import io
+import json
 import queue
 import threading
 import time
@@ -36,17 +43,21 @@ class BatchedServer:
     ``{"obj_logits": (n, C), "rel_cls": (e, R), "edge_index": (e, 2)}``
     (numpy arrays) for the scene's n valid instances and e directed edges.
     ``state`` is a ``state_dict`` for ``model`` (by default its own); it is
-    copied to the device once.
+    copied to the device once.  ``branch_3d_only`` picks the eval step's
+    forward (the 3D branch alone, or the dual forward) and ``branch_key``
+    the branch whose outputs ("3d" or "2d") the futures carry.
     """
 
     def __init__(self, model, state: Optional[Mapping] = None, device=None,
                  max_batch: int = 32, deadline_ms: float = 5.0,
                  buckets: Sequence[int] = DEFAULT_NODE_BUCKETS,
                  feat_dim: int = 512, num_rel_classes: int = 26,
+                 branch_3d_only: bool = True, branch_key: str = "3d",
                  pad_to_max: bool = True):
         dev = resolve_device(device)
         self._pin = dev.type == "cuda"
-        self._eval = make_eval_step(model, branch_3d_only=True, device=dev)
+        self._eval = make_eval_step(model, branch_3d_only=branch_3d_only, device=dev)
+        self.branch_key = branch_key
         state = model.state_dict() if state is None else state
         self._state = {k: v.to(dev) for k, v in state.items()}
         self.max_batch = max_batch
@@ -149,14 +160,115 @@ class BatchedServer:
             batch = batch.replace(**{k: v.pin_memory() for k, v in vars(batch).items()
                                      if v is not None})
         out = self._eval(self._state, batch)
-        ol = out["obj_logits_3d"].cpu().numpy()
-        rc = out["rel_cls_3d"].cpu().numpy()
+        ol = out[f"obj_logits_{self.branch_key}"].cpu().numpy()
+        rc = out[f"rel_cls_{self.branch_key}"].cpu().numpy()
         self.stats["scenes"] += len(items)
         self.stats["batches"] += 1
         self.stats["batch_size_sum"] += len(items)
         for k, (fut, n, ei) in enumerate(zip(futs, counts, eis)):
             fut.set_result({"obj_logits": ol[k, :n], "rel_cls": rc[k, :len(ei)],
                             "edge_index": ei})
+
+
+class HTTPFrontend:
+    """HTTP transport over a :class:`BatchedServer` (stdlib
+    ``ThreadingHTTPServer``: each request thread blocks on its scene's
+    future while the server micro-batches across threads).
+
+    * ``POST /predict``: the body is an ``.npz`` with ``obj_points`` (n, P, C)
+      zero-meaned, ``descriptor`` (n, 11), optional ``obj_2d_feats`` (n, D2)
+      and ``edge_index`` (e, 2); the answer is an ``.npz`` with
+      ``obj_logits`` (n, C_obj), ``rel_cls`` (e, R) and ``edge_index`` (e, 2).
+      A payload that cannot be served gets 400 and
+      ``{"error": "<Type>: <message>"}``.
+    * ``GET /healthz``: JSON ``{"ok": true, "scenes", "batches",
+      "mean_batch_size"}``.
+    * Any other path: 404.
+
+    ``port=0`` binds an ephemeral port; ``.port`` holds the bound one.
+    """
+
+    def __init__(self, server: BatchedServer, host: str = "127.0.0.1",
+                 port: int = 0, timeout_s: float = 120.0):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        frontend = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):  # quiet
+                pass
+
+            def _reply(self, code: int, body: bytes, ctype: str):
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path != "/healthz":
+                    self._reply(404, b'{"error": "not found"}', "application/json")
+                    return
+                st = frontend.server.stats
+                body = json.dumps({
+                    "ok": True, "scenes": st["scenes"], "batches": st["batches"],
+                    "mean_batch_size": st["batch_size_sum"] / max(st["batches"], 1),
+                }).encode()
+                self._reply(200, body, "application/json")
+
+            def do_POST(self):
+                if self.path != "/predict":
+                    self._reply(404, b'{"error": "not found"}', "application/json")
+                    return
+                try:
+                    raw = self.rfile.read(int(self.headers.get("Content-Length", "0")))
+                    with np.load(io.BytesIO(raw), allow_pickle=False) as z:
+                        scene = {k: z[k] for k in z.files}
+                    if "obj_points" not in scene or "descriptor" not in scene:
+                        raise ValueError("payload needs obj_points and descriptor")
+                    res = frontend.server.predict(scene, timeout=frontend.timeout_s)
+                    buf = io.BytesIO()
+                    np.savez(buf, **res)
+                    self._reply(200, buf.getvalue(), "application/octet-stream")
+                except Exception as e:  # the client gets the reason
+                    self._reply(400, json.dumps(
+                        {"error": f"{type(e).__name__}: {e}"}).encode(), "application/json")
+
+        self.server = server
+        self.timeout_s = timeout_s
+        self.httpd = ThreadingHTTPServer((host, port), Handler)
+        self.port = self.httpd.server_address[1]
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "HTTPFrontend":
+        self.server.start()
+        self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+        self.server.stop()
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def serve_forever(self):
+        """Foreground entry of the CLI's serve mode; Ctrl-C (SIGINT) stops it."""
+        self.server.start()
+        try:
+            self.httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            self.httpd.server_close()
+            self.server.stop()
 
 
 def bench_server(server: BatchedServer, scenes: Sequence[dict],

@@ -79,21 +79,36 @@ class CheckpointManager:
         for s in dropped:  # only once the index no longer names them
             os.remove(self._path(s))
 
-    def restore(self, state: TrainState, best: bool = False,
-                device=None) -> Optional[TrainState]:
-        """Load the best (``best=True``, else the latest) checkpoint into
-        ``state`` in place, its tensors mapped onto ``device`` (by default
-        the model's); None when there is no checkpoint."""
+    def _load(self, best: bool, device) -> Optional[dict]:
         step = self.best_step if best else self.latest_step
         if step is None and best:
             step = self.latest_step
         if step is None:
             return None
+        return torch.load(self._path(step), map_location=device, weights_only=True)
+
+    def restore(self, state: TrainState, best: bool = False,
+                device=None) -> Optional[TrainState]:
+        """Load the best (``best=True``, else the latest) checkpoint into
+        ``state`` in place, its tensors mapped onto ``device`` (by default
+        the model's); None when there is no checkpoint."""
         if device is None:
             device = next(state.model.parameters()).device
-        state.load_state_dict(torch.load(self._path(step), map_location=device,
-                                         weights_only=True))
+        saved = self._load(best, device)
+        if saved is None:
+            return None
+        state.load_state_dict(saved)
         return state
+
+    def restore_model(self, model: torch.nn.Module, best: bool = True) -> bool:
+        """Load only the weights (parameters and BatchNorm statistics) of the
+        best (else the latest) checkpoint into ``model``; False when there is
+        no checkpoint.  The runner's ``MODEL.use_pretrain`` reads this."""
+        saved = self._load(best, next(model.parameters()).device)
+        if saved is None:
+            return False
+        model.load_state_dict(saved["model"])
+        return True
 
     @property
     def latest_step(self) -> Optional[int]:
