@@ -67,8 +67,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     the same rows (dropout off), trained scenes/s of both, step wall ms and
     idle share; and a sweep of B in {16, 32, 64} over the grouped path at
     buckets 8 and 12 (the port's ``DEFAULT_EVAL_BATCH`` entries);
-11. the runner and the CLI, over phase 10's PLY split (removed after this
-    phase): a ``TripletTextCache`` of the train split's sentences from
+11. the runner and the CLI, over phase 10's PLY split: a ``TripletTextCache`` of the train split's sentences from
     ``HashTextEncoder``; one experiment JSON at the full MODEL width (B=8,
     2 epochs, validation every epoch, ``EVAL_BATCH_SIZE="auto"``,
     ``TRAIN_MICROSTEPS`` 4, resident train and eval splits, ``EVAL_GROUP``
@@ -85,10 +84,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
     load) held against the CPU's eval step on the checkpoint's weights at
     the model gate, then 8 HTTP client threads for a few seconds (scenes/s,
     p50 / p99 latency), ``/healthz`` counting every request, 400 on a
-    payload without ``descriptor``, and exit code 0 within 30 s of SIGINT.
+    payload without ``descriptor``, and exit code 0 within 30 s of SIGINT;
+12. the model zoo: ``MmgnetSingle``, ``SGFN``, ``SGPN`` (256-point union
+    clouds), ``MMteacher`` and ``MmgnetIn21k`` (768-d 2D features) from
+    ``models.registry.build_model`` at the default MODEL widths with seeded
+    weights; each evaluated by ``eval.engine.evaluate`` at B=32 over phase
+    8's 5-9-node split (finite metrics; segment-max launched 2, 2, 0, 4 and
+    4 times per batch, counters at 0 just before), its card forward equal
+    to a CPU forward at the model gate on two batches with object and
+    predicate ranks bit-equal, a profiled pass at bucket 12; 10 timed train
+    steps at B=8 with the registry's loss and text targets (no kernel
+    launch), a profiled few, the loss falling over 8 steps on one batch,
+    and one fp64 step card against CPU (loss rtol 1e-4, every gradient
+    leaf at the gate); then ``main --mode train`` (1 epoch) and ``--mode
+    eval`` for ``NAME=SGFN`` on phase 11's pack and JSON (eval metrics
+    equal to the closing validation's, no tolerance; 2 segment-max
+    launches per evaluated batch); then a seeded directory of reference
+    per-module ``.pth`` files for ``Mmgnet`` imported onto the card by
+    ``interop.torch_import`` (dual forward equal to the CPU's at the model
+    gate).  Phases 10-12's work directories are removed at its end.
 
-The last lines are a JSON ``kernels`` line (with each kernel's launches in
-every phase), the card's name and power limit as nvidia-smi reports them,
+The last lines are a ``variants`` line (per model: evaluated
+scenes/s, wall ms per batch, trained scenes/s, step wall ms, peak memory,
+segment-max launches), a JSON ``kernels`` line (with each kernel's
+launches in every phase), the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``.
 """
 
@@ -359,19 +378,40 @@ def profile_forward(model, dev, scenes, reps: int = 5) -> dict:
     }
 
 
+def union_points(rng, sc: dict, num_points: int) -> np.ndarray:
+    """SGPN's per-edge union clouds for a synthetic scene, as the dataset
+    builds them (``data/dataset.py`` ``_union_points``): ``num_points``
+    points drawn from the two endpoints' points, centred, with a membership
+    channel (1 subject, 2 object)."""
+    world = sc["obj_points"] + sc["descriptor"][:, None, :3]
+    p = world.shape[1]
+    out = np.zeros((len(sc["edge_index"]), num_points, 4), np.float32)
+    for k, (i, j) in enumerate(sc["edge_index"]):
+        pick = rng.randint(0, 2 * p, num_points)
+        pts = np.concatenate([world[i], world[j]])[pick]
+        out[k, :, :3] = pts - pts.mean(0, keepdims=True)
+        out[k, :, 3] = 1 + (pick >= p)
+    return out
+
+
 def labelled_splits(seed: int, batch: int = BATCH,
                     large=(("b48", 33, 48, BATCH), ("b64", 49, 64, BATCH)),
-                    with_text: bool = False) -> dict:
+                    with_text: bool = False, feat_dim: int = 512,
+                    num_points_union: int = 0) -> dict:
     """Host batches of ``batch`` scenes: "val" has the node and relation
     counts of 256 draws from the 3DSSG validation split (5-9 nodes), grouped
     by node bucket; each (name, lo, hi, count) of ``large`` holds ``count``
     scenes of lo-hi nodes.  ``with_text`` adds unit-norm per-edge text
-    targets (the rel-mimic loss's)."""
+    targets (the rel-mimic loss's); ``feat_dim`` is the width of the 2D
+    features; ``num_points_union`` > 0 adds SGPN's union clouds of that many
+    points (from a stream of their own, so the rest of a split does not
+    change)."""
     from vlsat_tpu_torch.data.synthetic import (edge_text_targets, make_scene,
                                                 validation_scene_stats)
     from vlsat_tpu_torch.scene import collate, edge_count, pad_scene, pick_bucket
 
     rng = np.random.RandomState(seed)
+    urng = np.random.RandomState(seed + 1000)
     nodes, rels = validation_scene_stats(256, seed=seed)
     specs = {"val": list(zip(nodes, rels))}
     for name, lo, hi, count in large:
@@ -382,9 +422,11 @@ def labelled_splits(seed: int, batch: int = BATCH,
         for n, r in spec:
             # the split's own label density where it has one
             density = 0.08 if r is None else min(1.0, r / (edge_count(n) * 26))
-            sc = make_scene(rng, n, rel_density=density)
+            sc = make_scene(rng, n, rel_density=density, feat_dim=feat_dim)
             if with_text:
                 sc["rel_text_feat"] = edge_text_targets(rng, len(sc["edge_index"]))
+            if num_points_union:
+                sc["rel_points"] = union_points(urng, sc, num_points_union)
             scenes.append(sc)
         by_bucket: dict = {}
         for sc in scenes:
@@ -396,7 +438,7 @@ def labelled_splits(seed: int, batch: int = BATCH,
                 batches.append(collate([pad_scene(
                     sc["obj_points"], sc["descriptor"], sc["obj_2d_feats"], sc["gt_class"],
                     sc["edge_index"], sc["gt_rels"], n_max=bucket,
-                    rel_text_feat=sc.get("rel_text_feat"))
+                    rel_text_feat=sc.get("rel_text_feat"), rel_points=sc.get("rel_points"))
                     for sc in group[lo:lo + batch]], with_text=with_text))
         splits[name] = batches
     return splits
@@ -618,7 +660,7 @@ def grad_gate(got: dict, want: dict, what: str, min_frac: float = 1.0) -> dict:
 def as_dtype(batch, dtype):
     return batch.replace(**{f: getattr(batch, f).to(dtype) for f in
                             ("obj_points", "descriptor", "obj_2d_feats", "gt_rels",
-                             "rel_text_feat")})
+                             "rel_text_feat", "rel_points") if getattr(batch, f) is not None})
 
 
 def grads_of(model, prefix: str = "") -> dict:
@@ -1452,6 +1494,280 @@ def runner(dev) -> dict:
         f"{health['mean_batch_size']:.1f}); answers for 4 scenes match the CPU (rtol 1e-3, "
         f"atol 1e-4); 400 on a bad payload; exit 0 after SIGINT")
     out["launches"] = {k: train_launches[k] + eval_launches[k] for k in train_launches}
+    return out
+
+
+# segment-max launches of one eval forward, per registry entry: one per
+# GraphEdgeAttenNetwork layer (depth 2), both towers of the teacher/student
+# and both branches of in21k; SGPN has no graph network
+VARIANTS = {"MmgnetSingle": 2, "SGFN": 2, "SGPN": 0, "MMteacher": 4, "MmgnetIn21k": 4}
+VARIANT_TRAIN_STEPS = 10
+NUM_POINTS_UNION = 256     # the JAX config's num_points_union
+
+
+def variant_splits(name: str) -> dict:
+    """Phase 8's 3DSSG-like split (B=32, buckets 8/12) and B=8 train
+    batches with text targets, with 768-d 2D features for in21k and union
+    clouds for SGPN."""
+    kw = dict(feat_dim=768 if name == "MmgnetIn21k" else 512,
+              num_points_union=NUM_POINTS_UNION if name == "SGPN" else 0)
+    return {"eval": labelled_splits(SEED + 2, large=(), **kw)["val"],
+            "train": labelled_splits(SEED + 3, batch=TRAIN_BATCH, large=(), with_text=True,
+                                     **kw)["val"]}
+
+
+def variant_model(name: str, dev, seed: int):
+    """The registry's model and loss at the default MODEL section, with
+    weights drawn from ``seed`` on ``dev``."""
+    from vlsat_tpu_torch.config import load_config
+    from vlsat_tpu_torch.models.mmgnet import init_parameters
+    from vlsat_tpu_torch.models.registry import build_model
+
+    model, loss = build_model(name, 160, 26, load_config().MODEL)
+    model.to(dev)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.eval(), loss
+
+
+def variant_run(name: str, dev) -> dict:
+    """One registry entry on the card: evaluation, forward and ranks
+    against the CPU, timed train steps, a falling loss and the fp64 step
+    against the CPU."""
+    from vlsat_tpu_torch.eval.engine import evaluate
+    from vlsat_tpu_torch.train.optim import make_optimizer
+    from vlsat_tpu_torch.train.state import create_train_state
+    from vlsat_tpu_torch.train.step import make_eval_step, make_train_step
+
+    splits = variant_splits(name)
+    val, train = splits["eval"], splits["train"]
+    per_fwd = VARIANTS[name]
+    model, loss = variant_model(name, dev, SEED + 10)
+    step = make_eval_step(model, device=dev)
+    state = model.state_dict()
+    kw = dict(num_rel_classes=26, verbose=False, scene_recall=True,
+              train_triplet_vocab=triplet_vocab(val))
+    evaluate(step, state, val, **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    metrics = evaluate(step, state, val, **kw)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    nb, scenes = len(val), sum(b.num_scenes for b in val)
+    if launches != {"segment_max": per_fwd * nb, "pointnet_fused": 0, "pointnet_fused_v2": 0}:
+        fail(f"variants, {name}: evaluation launched {launches} for {nb} batches "
+             f"(want {per_fwd * nb} segment-max, no PointNet)")
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if bad or len(metrics) < 56:
+        fail(f"variants, {name}: {len(metrics)} metrics, non-finite: {bad}")
+    out = {"eval": {"scenes": scenes, "batches": nb, "wall_s": wall,
+                    "scenes_per_sec": scenes / wall, "wall_ms_per_batch": wall * 1e3 / nb,
+                    "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "launches": launches, "mean_recall_50": metrics["mean_recall_50"]}}
+    out["checks"] = [check_eval_batch(model, state, dev, b) for b in val[:2]]
+    out["eval_profile"] = profile_eval(step, state, [b for b in val if b.num_nodes == 12])
+
+    # train steps at B=8 with the registry's loss and text targets
+    spec = make_optimizer(lr=1e-4, max_iteration=1000)
+    tstate = create_train_state(model, spec)
+    tstep = make_train_step(model, spec, objective=loss, device=dev)
+    for b in {b.num_nodes: b for b in train}.values():  # warm-up, one step per shape
+        tstep(tstate, b, 0)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    batches = train[:VARIANT_TRAIN_STEPS]
+    t0 = time.monotonic()
+    losses = torch.stack([tstep(tstate, b, i)[1]["loss"] for i, b in enumerate(batches)]).cpu()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    train_launches = read_launches()
+    if any(train_launches.values()) or not torch.isfinite(losses).all():
+        fail(f"variants, {name}: train steps launched {train_launches} (want none), "
+             f"losses {losses.tolist()}")
+    tscenes = sum(b.num_scenes for b in batches)
+    out["train"] = {"steps": len(batches), "scenes": tscenes,
+                    "step_wall_ms": wall * 1e3 / len(batches), "scenes_per_sec": tscenes / wall,
+                    "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out["train_profile"] = profile_train(tstep, tstate,
+                                         [b for b in train if b.num_nodes == 12][:6])
+
+    # the loss falls over 8 steps on one repeated batch
+    fixed, _ = variant_model(name, dev, SEED + 11)
+    fstate = create_train_state(fixed, spec)
+    fstep = make_train_step(fixed, spec, objective=loss, device=dev)
+    fixed_losses = torch.stack([fstep(fstate, train[0], 0)[1]["loss"]
+                                for _ in range(8)]).cpu().tolist()
+    if not fixed_losses[-1] < fixed_losses[0]:
+        fail(f"variants, {name}: the loss did not fall over 8 steps on one batch: "
+             f"{fixed_losses}")
+    out["fixed_batch_losses"] = [fixed_losses[0], fixed_losses[-1]]
+
+    # one fp64 step on the card and on the CPU from identical weights, dropout off
+    batch = train[-1]  # batches come in bucket order: the last is at bucket 12
+    pair = [dropout_off(variant_model(name, d, SEED + 12)[0]).double() for d in (dev, "cpu")]
+    step_losses = []
+    for m, d in zip(pair, (dev, "cpu")):
+        st = create_train_state(m, spec)
+        _, aux = make_train_step(m, spec, objective=loss, device=d)(
+            st, as_dtype(batch, torch.float64), 0)
+        step_losses.append(aux["loss"].item())
+    if not np.isclose(step_losses[0], step_losses[1], rtol=1e-4, atol=0):
+        fail(f"variants, {name}: fp64 train step loss on the card {step_losses[0]} != CPU "
+             f"{step_losses[1]} (rtol 1e-4)")
+    out["fp64_step"] = {"loss": step_losses, "gradients": grad_gate(
+        grads_of(pair[0]), grads_of(pair[1]), f"variants, {name}: fp64 train step")}
+    e, t = out["eval"], out["train"]
+    log(f"variants, {name}: evaluated {e['scenes']} scenes at {e['scenes_per_sec']:.1f} "
+        f"scenes/s ({e['wall_ms_per_batch']:.2f} ms a batch, segment-max "
+        f"{launches['segment_max']} for {nb} batches); card forward and ranks equal the "
+        f"CPU's on 2 batches; trained {t['scenes_per_sec']:.1f} scenes/s "
+        f"({t['step_wall_ms']:.2f} ms a step, no kernel launch); loss "
+        f"{fixed_losses[0]:.4f} -> {fixed_losses[-1]:.4f} in 8 steps; fp64 step card against "
+        f"CPU: loss {step_losses[0]:.9g} / {step_losses[1]:.9g}, every gradient leaf at the gate")
+    return out
+
+
+def reference_module_files(directory: Path, seed: int) -> None:
+    """Per-module ``.pth`` files of a reference ``Mmgnet`` checkpoint
+    (BaseModel.save naming and Sequential indices, as
+    tests/test_torch_import.py fabricates them) at full width, with seeded
+    weights scaled by 1/sqrt(fan-in) and positive BatchNorm variances."""
+    g = torch.Generator().manual_seed(seed)
+    d, h, da = 512, 8, 256
+    dn, do = d // h, da // h
+
+    def lin(prefix, din, dout):
+        p = f"{prefix}." if prefix else ""
+        return {f"{p}weight": torch.randn(dout, din, generator=g) / din ** 0.5,
+                f"{p}bias": 0.1 * torch.randn(dout, generator=g)}
+
+    def norm(prefix, n, stats=False):
+        out = {f"{prefix}.weight": 1 + 0.1 * torch.randn(n, generator=g),
+               f"{prefix}.bias": 0.1 * torch.randn(n, generator=g)}
+        if stats:
+            out[f"{prefix}.running_mean"] = 0.5 * torch.randn(n, generator=g)
+            out[f"{prefix}.running_var"] = 0.5 + torch.rand(n, generator=g)
+        return out
+
+    def many(*parts):
+        return {k: v for part in parts for k, v in part.items()}
+
+    pointnet = lambda cin, cout: many(lin("conv1", cin, 64), lin("conv2", 64, 128),
+                                      lin("conv3", 128, cout))
+    mha = lambda p: many(*(lin(f"{p}.attention.fc_{x}", d, d) for x in "qkvo"),
+                         norm(f"{p}.layer_norm", d))
+    gean = lambda p: many(
+        lin(f"{p}.edgeatten.nn_edge.0", 3 * d, 2 * d), lin(f"{p}.edgeatten.nn_edge.2", 2 * d, d),
+        lin(f"{p}.edgeatten.proj_query.0", d, d), lin(f"{p}.edgeatten.proj_edge.0", d, d),
+        lin(f"{p}.edgeatten.proj_value.0", d, da), lin(f"{p}.edgeatten.nn.0", 2 * dn, 2 * dn),
+        lin(f"{p}.edgeatten.nn.3", 2 * dn, do), lin(f"{p}.prop.0", d + da, d + da),
+        lin(f"{p}.prop.2", d + da, d))
+    mmg = many(lin("self_attn_fc.0", 4, 32), norm("self_attn_fc.2", 32),
+               lin("self_attn_fc.3", 32, 32), norm("self_attn_fc.5", 32),
+               lin("self_attn_fc.6", 32, h),
+               *(mha(f"{m}.{i}") for i in range(2)
+                 for m in ("self_attn", "cross_attn", "cross_attn_rel")),
+               *(gean(f"{m}.{i}") for i in range(2) for m in ("gcn_3ds", "gcn_2ds")))
+    rel = lambda: many(lin("fc1", d, 512), lin("fc2", 512, 256), lin("fc3", 256, 26))
+    modules = {
+        "obj_encoder": pointnet(3, 768), "rel_encoder_2d": pointnet(11, d),
+        "rel_encoder_3d": pointnet(11, d), "mmg": mmg,
+        "clip_adapter": many(lin("fc1", d, 256), lin("fc2", 256, d)),
+        "rel_predictor_2d": rel(), "rel_predictor_3d": rel(),
+        "obj_predictor_2d": lin("", d, 160), "obj_predictor_3d": lin("", d, 160),
+        "mlp_3d": many(lin("0", 768, 504), norm("1", 504, stats=True)),
+        "triplet_projector_2d": many(lin("0", 3 * d, 1024), lin("3", 1024, d)),
+        "obj_logit_scale": {"obj_logit_scale": torch.tensor(float(np.log(1 / 0.07)))},
+    }
+    directory.mkdir(parents=True, exist_ok=True)
+    for name, sd in modules.items():
+        torch.save(sd, directory / f"{name}.pth")
+
+
+def variants(dev) -> dict:
+    """Phase 12: the model zoo on the card."""
+    from vlsat_tpu_torch.config import load_config
+    from vlsat_tpu_torch.data.bucket_batch import DEFAULT_EVAL_BATCH
+    from vlsat_tpu_torch.data.packed import PackedScenes
+    from vlsat_tpu_torch.interop.torch_import import import_from_directory, to_state_dict
+    from vlsat_tpu_torch.main import main as cli
+    from vlsat_tpu_torch.models.mmgnet import MMGNet, MMGNetConfig
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    out: dict = {"models": {}}
+    for name in VARIANTS:
+        t0 = time.monotonic()
+        out["models"][name] = variant_run(name, dev)
+        out["models"][name]["phase_s"] = time.monotonic() - t0
+
+    # the CLI on SGFN over phase 11's pack: train one epoch, then eval
+    cfg_json = json.loads((RUN_WORK / "cfg.json").read_text())
+    cfg_json.update(NAME="SGFN", MAX_EPOCHES=1, PATH=str(RUN_WORK / "sgfn"))
+    cfg_path = RUN_WORK / "sgfn.json"
+    cfg_path.write_text(json.dumps(cfg_json))
+    rows = eval_rows(PackedScenes(str(RUN_WORK / "pack" / "validation")), DEFAULT_EVAL_BATCH,
+                     EVAL_GROUP)
+    reset_launches()
+    t0 = time.monotonic()
+    train_metrics = cli(["--config", str(cfg_path), "--mode", "train"])
+    train_s = time.monotonic() - t0
+    train_launches = read_launches()
+    if train_launches != {"segment_max": 2 * rows * 2, "pointnet_fused": 0,
+                          "pointnet_fused_v2": 0}:
+        fail(f"variants, SGFN train command: launches {train_launches}; want {4 * rows} "
+             f"segment-max (2 validations of {rows} batches, 2 each)")
+    reset_launches()
+    t0 = time.monotonic()
+    eval_metrics = cli(["--config", str(cfg_path), "--mode", "eval"])
+    eval_s = time.monotonic() - t0
+    eval_launches = read_launches()
+    differ = differing_metrics(eval_metrics, train_metrics)
+    if differ or eval_launches["segment_max"] != 2 * rows:
+        fail(f"variants, SGFN eval command: metrics differing from the closing validation "
+             f"on {differ}; launches {eval_launches} (want {2 * rows} segment-max)")
+    exp = Path(cfg_json["PATH"]) / "SGFN" / "default"
+    with open(exp / "epoch_stats.jsonl") as f:
+        epoch = json.loads(f.readline())
+    if epoch["step"] <= 0 or not epoch["scenes_per_sec"] > 0:
+        fail(f"variants, SGFN train command: epoch row {epoch}")
+    out["cli_sgfn"] = {"train_command_s": train_s, "eval_command_s": eval_s,
+                       "metrics": len(eval_metrics), "launches_train": train_launches,
+                       "launches_eval": eval_launches, "epoch": epoch,
+                       "mean_recall_50": eval_metrics["mean_recall_50"]}
+    log(f"variants, SGFN through the CLI: train {train_s:.1f} s (epoch {epoch}), eval "
+        f"{eval_s:.1f} s with {len(eval_metrics)} metrics equal to the closing validation's; "
+        f"segment-max {train_launches['segment_max']} / {eval_launches['segment_max']}")
+
+    # a reference checkpoint directory imported onto the card
+    pth = RUN_WORK / "reference_pth"
+    reference_module_files(pth, SEED + 13)
+    t0 = time.monotonic()
+    variables = import_from_directory(str(pth))
+    card = MMGNet(MMGNetConfig()).to(dev)
+    card.load_state_dict(to_state_dict(variables, card))
+    cpu = MMGNet(MMGNetConfig())
+    cpu.load_state_dict(to_state_dict(variables, cpu))
+    import_s = time.monotonic() - t0
+    batch = labelled_splits(SEED + 14, large=())["val"][0]
+    got = make_eval_step(card.eval(), device=dev)(card.state_dict(), batch)
+    want = make_eval_step(cpu.eval(), device="cpu")(cpu.state_dict(), batch)
+    masks = {"obj": batch.obj_mask, "rel": batch.edge_mask}
+    diffs = {}
+    for key, w in want.items():
+        g, m = got[key].cpu(), masks[key.split("_")[0]]
+        diffs[key] = (g[m] - w[m]).abs().max().item()
+        if not (torch.isfinite(g[m]).all() and torch.allclose(g[m], w[m], rtol=1e-3, atol=1e-4)):
+            fail(f"variants, imported checkpoint: {key} on the card differs from the CPU: "
+                 f"max abs {diffs[key]}")
+    out["import"] = {"modules": len(list(pth.glob("*.pth"))), "import_s": import_s,
+                     "max_abs_diff": diffs}
+    log(f"variants, reference .pth import: {out['import']['modules']} module files onto the "
+        f"card in {import_s:.2f} s; dual forward equals the CPU's (max abs {max(diffs.values()):.3g})")
+    out["launches"] = {k: sum(m["eval"]["launches"][k] for m in out["models"].values())
+                       for k in train_launches}
     shutil.rmtree(RUN_WORK, ignore_errors=True)
     shutil.rmtree(WORK, ignore_errors=True)
     return out
@@ -1559,6 +1875,21 @@ def main() -> None:
     for k in kernels:
         k["launches_runner"] = run["launches"].get(k["name"], 0)
     log(json.dumps({"runner": run}))
+
+    # 12. the model zoo
+    zoo = variants(dev)
+    for k in kernels:
+        k["launches_variants"] = zoo["launches"].get(k["name"], 0)
+    log(json.dumps({"variants_detail": zoo}))
+    log(json.dumps({"variants": {
+        name: {"eval_scenes_per_sec": m["eval"]["scenes_per_sec"],
+               "eval_wall_ms_per_batch": m["eval"]["wall_ms_per_batch"],
+               "trained_scenes_per_sec": m["train"]["scenes_per_sec"],
+               "step_wall_ms": m["train"]["step_wall_ms"],
+               "peak_memory_gib": max(m["eval"]["peak_memory_gib"],
+                                      m["train"]["peak_memory_gib"]),
+               "segment_max_launches": m["eval"]["launches"]["segment_max"]}
+        for name, m in zoo["models"].items()}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -555,3 +555,38 @@ def test_runner_epoch_and_validation_on_card(dev, tmp_path):
     with open(tmp_path / "out" / "Mmgnet" / "default" / "epoch_stats.jsonl") as f:
         row = json.loads(f.readline())
     assert row["hbm_peak_mb"] > 0 and np.isfinite(row["mean_recall_50"])
+
+
+@pytest.mark.parametrize("name,per_forward", [("MmgnetSingle", 2), ("SGFN", 2), ("SGPN", 0),
+                                               ("MMteacher", 4), ("MmgnetIn21k", 4)])
+def test_variant_eval_forward_on_card_matches_cpu(dev, name, per_forward):
+    """A registry variant's eval forward on the card launches segment-max
+    once per graph layer and branch (none for SGPN) and equals the CPU's
+    forward of the same weights at the model gate."""
+    from vlsat_tpu_torch.config import load_config
+    from vlsat_tpu_torch.data.synthetic import make_batch
+    from vlsat_tpu_torch.models.mmgnet import init_parameters
+    from vlsat_tpu_torch.models.registry import build_model
+    from vlsat_tpu_torch.ops.kernels import segment_max
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    mcfg = load_config(overrides={"MODEL": {"N_LAYERS": 2, "DIM_ATTEN": 32,
+                                            "NUM_HEADS": 4}}).MODEL
+    model, _ = build_model(name, 20, 7, mcfg)
+    init_parameters(model, torch.Generator().manual_seed(4))
+    batch = make_batch(seed=1, node_counts=(4, 6, 9), num_points=16,
+                       feat_dim=768 if name == "MmgnetIn21k" else 512,
+                       num_obj_classes=20, num_rel_classes=7)
+    if name == "SGPN":
+        rng = np.random.RandomState(2)
+        pts = rng.randn(*batch.edge_mask.shape, 32, 4).astype(np.float32)
+        batch = batch.replace(rel_points=torch.from_numpy(pts) * batch.edge_mask[..., None, None])
+    want = make_eval_step(model, device="cpu")(model.state_dict(), batch)
+    model.to(dev)
+    before = segment_max.launches
+    got = make_eval_step(model, device=dev)(model.state_dict(), batch)
+    assert segment_max.launches - before == per_forward
+    masks = {"obj": batch.obj_mask, "rel": batch.edge_mask}
+    for key, w in want.items():
+        m = masks[key.split("_")[0]]
+        torch.testing.assert_close(got[key].cpu()[m], w[m], rtol=1e-3, atol=1e-4, msg=key)

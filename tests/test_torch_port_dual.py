@@ -51,8 +51,8 @@ def _run(case: str, fused: bool):
     want = jax.jit(lambda p, s, b: FlaxMMGNet(cfg=jcfg).apply(
         {"params": p, "batch_stats": s}, b, istrain=False))(params, stats, batch)
     cfg = port_config(jcfg)
-    state = flax_to_state_dict(params, stats, cfg)
     model = MMGNet(cfg)
+    state = flax_to_state_dict(params, stats, model)
     tb = to_torch(batch)
     got = make_eval_step(model, device="cpu")(state, tb)
     got_3d = make_eval_step(model, branch_3d_only=True, device="cpu")(state, tb)

@@ -377,11 +377,12 @@ def test_port_evaluate_reproduces_golden_metrics(tmp_path):
     params = jax.tree_util.tree_map(np.asarray, variables["params"])
     stats = jax.tree_util.tree_map(np.asarray, variables.get("batch_stats", {}))
     cfg = port_config(jcfg)
-    state = flax_to_state_dict(params, stats, cfg)
+    model = MMGNet(cfg)
+    state = flax_to_state_dict(params, stats, model)
     vocab = build_triplet_vocab(load_relationship_json(root, "train_scans"),
                                 scenes.class_names, scenes.relation_names)
     metrics = tengine.evaluate(
-        make_eval_step(MMGNet(cfg), device="cpu"), state, [to_torch(b) for b in batches],
+        make_eval_step(model, device="cpu"), state, [to_torch(b) for b in batches],
         num_rel_classes=len(scenes.relation_names), train_triplet_vocab=vocab,
         total=len(scenes), verbose=False)
     with open(GOLDEN_PATH) as f:

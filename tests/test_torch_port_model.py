@@ -97,8 +97,8 @@ def test_3d_forward_matches_jax(case, fused):
         params, stats, batch)
 
     cfg = port_config(jcfg)
-    state = flax_to_state_dict(params, stats, cfg)
     model = MMGNet(cfg)
+    state = flax_to_state_dict(params, stats, model)
     step = make_eval_step(model, branch_3d_only=True, device="cpu")
     got = step(state, to_torch(batch))
     assert_live_rows_match(got, want, batch)
@@ -107,7 +107,7 @@ def test_3d_forward_matches_jax(case, fused):
 def test_bridge_round_trip_is_bit_equal():
     jcfg = FlaxConfig(**NARROW)
     params, stats = flax_variables(tuple(NARROW.items()), seed=5)
-    state = flax_to_state_dict(params, stats, port_config(jcfg))
+    state = flax_to_state_dict(params, stats, MMGNet(port_config(jcfg)))
     back_p, back_s = state_dict_to_flax(state)
 
     def leaves(tree, prefix=""):
@@ -136,13 +136,13 @@ def test_bridge_round_trip_is_bit_equal():
 def test_bridge_rejects_unknown_and_missing_leaves():
     jcfg = FlaxConfig(**NARROW)
     params, stats = flax_variables(tuple(NARROW.items()), seed=5)
-    cfg = port_config(jcfg)
+    model = MMGNet(port_config(jcfg))
     extra = dict(params, stray_head={"kernel": np.zeros((2, 2), np.float32)})
     with pytest.raises(KeyError, match="stray_head"):
-        flax_to_state_dict(extra, stats, cfg)
+        flax_to_state_dict(extra, stats, model)
     missing = {k: v for k, v in params.items() if k != "obj_predictor_3d"}
     with pytest.raises(KeyError, match="obj_predictor_3d"):
-        flax_to_state_dict(missing, stats, cfg)
+        flax_to_state_dict(missing, stats, model)
 
 
 def test_entry_points_refuse_cuda_without_a_card():

@@ -289,7 +289,7 @@ def test_resident_split_and_gather_equal_host_rows(multi):
 def _port_model(dropout: bool = True) -> MMGNet:
     params, stats = flax_variables(tuple(WIDTHS.items()), seed=5)
     model = MMGNet(CFG)
-    model.load_state_dict(flax_to_state_dict(params, stats, CFG))
+    model.load_state_dict(flax_to_state_dict(params, stats, model))
     if not dropout:
         for m in model.modules():
             if isinstance(m, Dropout):
@@ -376,7 +376,7 @@ def _leaves(tree, prefix=""):
 @functools.lru_cache(maxsize=None)
 def _eval_state():
     params, stats = flax_variables(tuple(WIDTHS.items()), seed=5)
-    return params, stats, flax_to_state_dict(params, stats, CFG)
+    return params, stats, flax_to_state_dict(params, stats, MMGNet(CFG))
 
 
 def _port_metrics(loader, **kw):

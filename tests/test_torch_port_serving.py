@@ -46,7 +46,7 @@ def _setup():
     params = jax.tree_util.tree_map(np.asarray, v["params"])
     stats = jax.tree_util.tree_map(np.asarray, v["batch_stats"])
     cfg = MMGNetConfig(**WIDTHS, fused_pointnet=True)
-    return model, params, stats, cfg, flax_to_state_dict(params, stats, cfg)
+    return model, params, stats, cfg, flax_to_state_dict(params, stats, MMGNet(cfg))
 
 
 def _scenes():
@@ -138,7 +138,8 @@ for name in ("eval.engine", "eval.metrics", "eval.recall", "data.pipeline", "dat
              "data.sampling", "data.dataset", "data.bucket_batch", "data.packed",
              "data.resident", "native", "main", "train.runner", "models.registry",
              "clipsem.prompts", "clipsem.text_tables", "utils.logging",
-             "tools.pack_dataset"):
+             "tools.pack_dataset", "models.variants", "models.mmteacher",
+             "interop.torch_import"):
     assert "vlsat_tpu_torch." + name in walked, name
 from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
 from vlsat_tpu_torch.serving import BatchedServer
@@ -209,7 +210,7 @@ print("ok")
 
 
 def test_port_sources_name_no_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|vlsat_tpu)(\.|\s|$)",
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|vlsat_tpu)(\.|\s|$)",
                          re.MULTILINE)
     files = sorted((REPO / "vlsat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10

@@ -77,7 +77,7 @@ def train_batch(seed: int, nodes=(5, 8, 3), bucket: int = 8, points: int = 16):
 def port_model(seed: int = 5) -> MMGNet:
     params, stats = flax_variables(tuple(NARROW.items()), seed=seed)
     model = MMGNet(CFG)
-    model.load_state_dict(flax_to_state_dict(params, stats, CFG))
+    model.load_state_dict(flax_to_state_dict(params, stats, model))
     return model
 
 

@@ -1,8 +1,9 @@
-"""Weight bridge: the JAX package's flax ``MMGNet`` variables -> the port's
-``state_dict``, and back.
+"""Weight bridge: the JAX package's flax variables -> the port's
+``state_dict``, and back, for every model of the registry.
 
 Input: ``params`` and ``batch_stats`` as nested dicts of numpy arrays (the
-trees of ``vlsat_tpu.models.MMGNet.init``).  Rules:
+trees of a flax model's ``init``) and the port's model they are for.  The
+port's module names follow the flax tree, so a leaf's path names its slot.  Rules:
 
   * a Dense kernel (in, out) becomes a Linear weight (out, in);
   * a ChannelDense/HeadMLP kernel (``.../edgeatten/nn/convK``) keeps its
@@ -10,11 +11,11 @@ trees of ``vlsat_tpu.models.MMGNet.init``).  Rules:
   * LayerNorm and MaskedBatchNorm ``scale`` becomes ``weight``; ``bias``
     stays ``bias``;
   * batch_stats ``mean``/``var`` become ``running_mean``/``running_var``;
-  * ``obj_logit_scale`` carries over as is.
+  * a top-level ``*logit_scale`` scalar carries over as is.
 
 A leaf that the port's model has no slot for raises, and so does a slot
 that no leaf fills: the flax tree must come from an ``istrain=True`` init
-(or a training checkpoint), which holds ``triplet_projector_2d``.
+(or a training checkpoint), which holds the triplet projectors.
 
 ``train_state_from_flax`` also carries a JAX training run across: optax's
 per-group Adam moments and counts become the AdamW state, and the schedule
@@ -28,8 +29,8 @@ from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-from vlsat_tpu_torch.models.mmgnet import MMGNet, MMGNetConfig
 from vlsat_tpu_torch.train.optim import OptimizerSpec, set_schedule_position
 from vlsat_tpu_torch.train.state import TrainState, create_train_state
 
@@ -51,9 +52,7 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _expected(cfg: MMGNetConfig) -> Dict[str, Tuple[int, ...]]:
-    with torch.device("meta"):
-        model = MMGNet(cfg)
+def _expected(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
     return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
@@ -80,7 +79,7 @@ def _port_params(params: Mapping, expected: Dict[str, Tuple[int, ...]]
             _put(out, expected, prefix + "weight", np.ascontiguousarray(arr.T), path)
         elif leaf in _PARAM_LEAF:
             _put(out, expected, prefix + _PARAM_LEAF[leaf], arr, path)
-        elif path == "obj_logit_scale":
+        elif not mod and leaf.endswith("logit_scale"):
             _put(out, expected, path, arr, path)
         else:
             raise KeyError(f"flax leaf {path!r} is not a known parameter kind")
@@ -88,9 +87,9 @@ def _port_params(params: Mapping, expected: Dict[str, Tuple[int, ...]]
 
 
 def flax_to_state_dict(params: Mapping, batch_stats: Mapping,
-                       cfg: MMGNetConfig = MMGNetConfig()) -> Dict[str, torch.Tensor]:
-    """Convert flax variables to the state_dict of ``MMGNet(cfg)``."""
-    expected = _expected(cfg)
+                       model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Convert flax variables to the state_dict of the port's ``model``."""
+    expected = _expected(model)
     out = _port_params(params, expected)
     for path, arr in _flatten(batch_stats).items():
         mod, _, leaf = path.rpartition("/")
@@ -118,7 +117,7 @@ def _adam_states(opt_state: Any) -> Dict[str, Tuple[int, Mapping, Mapping, list]
 
 
 def train_state_from_flax(params: Mapping, batch_stats: Mapping, opt_state: Any, step: int,
-                          model: MMGNet, optimizer: OptimizerSpec) -> TrainState:
+                          model: nn.Module, optimizer: OptimizerSpec) -> TrainState:
     """A ``TrainState`` of ``model`` (on its device) that resumes a JAX run
     after ``step`` updates: the bridged weights, AdamW moments ``exp_avg`` /
     ``exp_avg_sq`` from each group's optax ``mu`` / ``nu``, AdamW's step
@@ -126,10 +125,10 @@ def train_state_from_flax(params: Mapping, batch_stats: Mapping, opt_state: Any,
     ``step``.  ``optimizer`` must be the port's spec of the JAX run's
     ``make_optimizer`` arguments."""
     step = int(step)
-    model.load_state_dict(flax_to_state_dict(params, batch_stats, model.cfg))
+    model.load_state_dict(flax_to_state_dict(params, batch_stats, model))
     state = create_train_state(model, optimizer)
     adam = _adam_states(opt_state)
-    expected = _expected(model.cfg)
+    expected = _expected(model)
     for group in state.optimizer.param_groups:
         count, mu, nu, sched = adam[group["label"]]
         if any(c != step for c in sched):

@@ -1,4 +1,5 @@
-"""MMG graph stack, dual-branch (counterpart of ``vlsat_tpu/models/mmg.py:33-107``).
+"""MMG graph stacks, dual-branch and 3D-only (counterpart of
+``vlsat_tpu/models/mmg.py``).
 
 Per layer: distance-biased 3D node self-attention; 2D node cross-attention
 (q = f2d, k/v = the updated f3d, same node mask and distance bias); one
@@ -10,6 +11,7 @@ in training mode every dropout mask is drawn from the one ``rng`` generator
 in that call order.
 ``with_2d=False`` runs the 3D path alone; its outputs equal the 3D outputs
 of the full stack, since the 2D branch only reads the 3D stream.
+``MMGSingle`` is the 3D-only variant's stack: GCN layers alone, no attention.
 """
 
 from __future__ import annotations
@@ -64,3 +66,32 @@ class MMG(nn.Module):
                 if with_2d:
                     e2d = self.drop(torch.relu(e2d), rng)
         return f3d, f2d, e3d, e2d
+
+
+class MMGSingle(nn.Module):
+    """3D-only stack (mmg.py:110-139): ``depth`` ``GraphEdgeAttenNetwork``
+    layers ``gcn_3d_{i}``, ReLU + dropout between them (and after the only
+    one when depth == 1).  ``dim_in``: the width of the incoming node
+    features (504 without the spatial features), ``dim_node`` after the
+    first layer."""
+
+    def __init__(self, dim_node: int = 512, dim_edge: int = 512, dim_atten: int = 256,
+                 num_heads: int = 8, depth: int = 2, aggr: str = "max",
+                 dropout_atten: float = 0.5, use_edge: bool = True,
+                 dim_in: int | None = None):
+        super().__init__()
+        self.depth = depth
+        for i in range(depth):
+            self.add_module(f"gcn_3d_{i}", GraphEdgeAttenNetwork(
+                num_heads, dim_node, dim_edge, dim_atten, aggr=aggr,
+                dropout_atten=dropout_atten, use_edge=use_edge,
+                dim_in=dim_in if i == 0 else None))
+        self.drop = Dropout(dropout_atten)
+
+    def forward(self, f3d, e3d, edge_index, edge_mask, rng=None):
+        for i in range(self.depth):
+            f3d, e3d = getattr(self, f"gcn_3d_{i}")(f3d, e3d, edge_index, edge_mask, rng)
+            if i < self.depth - 1 or self.depth == 1:
+                f3d = self.drop(torch.relu(f3d), rng)
+                e3d = self.drop(torch.relu(e3d), rng)
+        return f3d, e3d

@@ -13,9 +13,10 @@ distillation losses (the mimic features, ``triplet_projector_2d``'s
 projected 2D pair features and ``logit_scale``).  The module's mode decides
 dropout, BatchNorm statistics and the kernel routes, as JAX's
 ``deterministic`` does: ``model.eval()`` with ``istrain=True`` is JAX's
-``istrain=True, deterministic=True``.  The in21k switches
-(``cosine_classifier``, ``use_adapter``, ``use_mlp_3d``) come with the
-variants slice.
+``istrain=True, deterministic=True``.  The config switches of the in21k
+model (``cosine_classifier``, ``use_adapter``, ``use_mlp_3d``) and
+``use_spatial`` drop the modules they name, as in JAX (mmgnet.py:179-191,
+213-223, 250-268).
 """
 
 from __future__ import annotations
@@ -42,7 +43,11 @@ from vlsat_tpu_torch.scene import SceneBatch
 class MMGNetConfig:
     """The fields of ``vlsat_tpu.models.MMGNetConfig`` that the forward
     reads, with the same defaults, plus ``point_channels`` (flax infers the
-    encoder's input width from the data; torch layers need it up front)."""
+    encoder's input width from the data; torch layers need it up front).
+    The in21k switches: ``cosine_classifier=False`` makes the object heads
+    plain Linears with ``logit_scale`` 1, ``use_adapter=False`` feeds
+    ``obj_2d_feats`` to the 2D branch as they are, ``use_mlp_3d=False``
+    drops the point_feature_size -> dim_node - 8 bottleneck."""
 
     num_obj_classes: int = 160
     num_rel_classes: int = 26
@@ -60,6 +65,10 @@ class MMGNetConfig:
     multi_rel_outputs: bool = True
     fused_pointnet: bool = False  # fused PointNet kernel for the object encoder
     point_channels: int = 3
+    use_spatial: bool = True
+    cosine_classifier: bool = True
+    use_adapter: bool = True
+    use_mlp_3d: bool = True
 
 
 class RelPredictor(nn.Module):
@@ -81,6 +90,30 @@ class RelPredictor(nn.Module):
         return torch.sigmoid(x) if self.multi_label else torch.log_softmax(x, dim=-1)
 
 
+class RelPredictorMulti2(nn.Module):
+    """Alternate multi-label head (mmgnet.py:97-111): fc1(256)-relu /
+    fc2(512)-dropout-relu / L2-normalise / fc3, then sigmoid."""
+
+    def __init__(self, in_features: int, num_classes: int, dropout: float = 0.3):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, 256)
+        self.fc2 = nn.Linear(256, 512)
+        self.drop = Dropout(dropout)
+        self.fc3 = nn.Linear(512, num_classes)
+
+    def forward(self, x, rng=None):
+        x = torch.relu(self.drop(self.fc2(torch.relu(self.fc1(x))), rng))
+        return torch.sigmoid(self.fc3(safe_normalize(x)))
+
+
+def spatial_features(descriptor: torch.Tensor) -> torch.Tensor:
+    """The 8 spatial features appended to the object features: the
+    descriptor's std and bbox columns as they are, log of its volume and
+    length (mmgnet.py:186-191)."""
+    spatial = descriptor[..., 3:]
+    return torch.cat([spatial[..., :6], torch.log(spatial[..., 6:])], dim=-1)
+
+
 class TripletProjector(nn.Module):
     """Linear(in -> 1024) - Dropout(0.5) - ReLU - Linear(1024 -> 512)
     (mmgnet.py:114-122): the 2D pair features pulled toward CLIP text."""
@@ -99,22 +132,35 @@ class MMGNet(nn.Module):
     """Flagship dual-branch model.  Apply to a SceneBatch of f32 tensors.
 
     ``obj_text_features``: optional (num_obj_classes, dim_node) table of
-    normalised CLIP text embeddings that ``init_parameters`` copies into both
-    cosine classifiers (``_text_kernel_init``, mmgnet.py:125-141)."""
+    normalised CLIP text embeddings that ``init_parameters`` copies into the
+    cosine classifiers named in ``text_classifiers`` (``_text_kernel_init``,
+    mmgnet.py:125-141).  A config whose node features are not ``dim_node``
+    wide (``use_spatial=False`` with ``use_mlp_3d``) raises: the attention's
+    residual cannot add them, and the JAX model fails on it too."""
 
     def __init__(self, cfg: MMGNetConfig = MMGNetConfig(),
                  obj_text_features: Optional[np.ndarray] = None):
         super().__init__()
+        width = ((cfg.dim_node - 8 if cfg.use_mlp_3d else cfg.point_feature_size)
+                 + 8 * cfg.use_spatial)
+        if width != cfg.dim_node:
+            raise ValueError(f"the node features are {width} wide, not dim_node "
+                             f"{cfg.dim_node} (use_spatial={cfg.use_spatial}, "
+                             f"use_mlp_3d={cfg.use_mlp_3d})")
         self.cfg = cfg
         self.obj_text_features = obj_text_features
+        self.text_classifiers = (("obj_predictor_3d", "obj_predictor_2d")
+                                 if cfg.cosine_classifier else ())
         self.obj_encoder = PointNetEncoder(cfg.point_channels, cfg.point_feature_size,
                                            fused=cfg.fused_pointnet)
-        self.mlp_3d_fc = nn.Linear(cfg.point_feature_size, cfg.dim_node - 8)
-        self.mlp_3d_bn = MaskedBatchNorm(cfg.dim_node - 8)
-        self.mlp_3d_drop = Dropout(0.1)
+        if cfg.use_mlp_3d:
+            self.mlp_3d_fc = nn.Linear(cfg.point_feature_size, cfg.dim_node - 8)
+            self.mlp_3d_bn = MaskedBatchNorm(cfg.dim_node - 8)
+            self.mlp_3d_drop = Dropout(0.1)
         self.rel_encoder_2d = PointNetEncoder(11, cfg.dim_edge)
         self.rel_encoder_3d = PointNetEncoder(11, cfg.dim_edge)
-        self.clip_adapter = AdapterModel(cfg.clip_feat_dim, alpha=cfg.adapter_alpha)
+        if cfg.use_adapter:
+            self.clip_adapter = AdapterModel(cfg.clip_feat_dim, alpha=cfg.adapter_alpha)
         self.mmg = MMG(dim_node=cfg.dim_node, dim_edge=cfg.dim_edge,
                        dim_atten=cfg.dim_atten, num_heads=cfg.num_heads,
                        depth=cfg.depth, aggr=cfg.gcn_aggr,
@@ -123,7 +169,8 @@ class MMGNet(nn.Module):
                                         multi_label=cfg.multi_rel_outputs)
         self.rel_predictor_3d = rel_head()
         self.rel_predictor_2d = rel_head()
-        self.obj_logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+        if cfg.cosine_classifier:
+            self.obj_logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
         self.obj_predictor_3d = nn.Linear(cfg.dim_node, cfg.num_obj_classes)
         self.obj_predictor_2d = nn.Linear(cfg.dim_node, cfg.num_obj_classes)
         self.triplet_projector_2d = TripletProjector(2 * cfg.dim_node + cfg.dim_edge)
@@ -136,27 +183,36 @@ class MMGNet(nn.Module):
         if istrain and branch_3d_only:
             raise ValueError("branch_3d_only is an inference mode")
         with_2d = not branch_3d_only
+        cfg = self.cfg
         obj = self.obj_encoder(batch.obj_points)
-        obj_feature_3d_mimic = obj[..., :self.cfg.clip_feat_dim]
-        obj = self.mlp_3d_fc(obj)
-        obj = self.mlp_3d_drop(torch.relu(self.mlp_3d_bn(obj, batch.obj_mask)), rng)
-        spatial = batch.descriptor[..., 3:]
-        spatial = torch.cat([spatial[..., :6], torch.log(spatial[..., 6:])], dim=-1)
-        obj = torch.cat([obj, spatial], dim=-1)
+        obj_feature_3d_mimic = obj[..., :cfg.clip_feat_dim]
+        if cfg.use_mlp_3d:
+            obj = self.mlp_3d_fc(obj)
+            obj = self.mlp_3d_drop(torch.relu(self.mlp_3d_bn(obj, batch.obj_mask)), rng)
+        if cfg.use_spatial:
+            obj = torch.cat([obj, spatial_features(batch.descriptor)], dim=-1)
 
         edge_feat = edge_descriptor(batch.descriptor, batch.edge_index).detach()
         rel_2d = self.rel_encoder_2d(edge_feat[..., None, :]) if with_2d else None
         rel_3d = self.rel_encoder_3d(edge_feat[..., None, :])
-        obj_2d = self.clip_adapter(batch.obj_2d_feats).detach() if with_2d else None
+        obj_2d = None
+        if with_2d:
+            obj_2d = (self.clip_adapter(batch.obj_2d_feats).detach() if cfg.use_adapter
+                      else batch.obj_2d_feats)
 
         f3d, f2d, e3d, e2d = self.mmg(obj, obj_2d, rel_3d, rel_2d, batch.edge_index,
                                       batch.obj_mask, batch.edge_mask,
                                       batch.descriptor[..., :3], with_2d=with_2d, rng=rng)
-        scale = torch.exp(self.obj_logit_scale)
-        out = {"obj_logits_3d": scale * self.obj_predictor_3d(safe_normalize(f3d)),
+        if cfg.cosine_classifier:
+            scale = torch.exp(self.obj_logit_scale)
+            head = lambda fc, x: scale * fc(safe_normalize(x))
+        else:
+            scale = f3d.new_ones(())
+            head = lambda fc, x: fc(x)
+        out = {"obj_logits_3d": head(self.obj_predictor_3d, f3d),
                "rel_cls_3d": self.rel_predictor_3d(e3d, rng)}
         if with_2d:
-            out["obj_logits_2d"] = scale * self.obj_predictor_2d(safe_normalize(f2d))
+            out["obj_logits_2d"] = head(self.obj_predictor_2d, f2d)
             out["rel_cls_2d"] = self.rel_predictor_2d(e2d, rng)
         if istrain:
             f2d_i, f2d_j = gather_edge_endpoints(f2d, batch.edge_index)
@@ -170,21 +226,23 @@ class MMGNet(nn.Module):
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded initialisation in place: LeCun-normal kernels (flax's Dense
-    default), zero biases, unit norm scales, identity BN statistics and
-    ``obj_logit_scale = log(1/0.07)``; the cosine classifiers' weights are
-    the model's ``obj_text_features`` table where it has one.  Values are
-    drawn on the CPU from ``generator`` and copied to the model's device."""
+    """Seeded initialisation in place, for every model of the registry:
+    LeCun-normal kernels (flax's Dense default), zero biases, unit norm
+    scales, identity BN statistics and every ``*logit_scale`` at
+    ``log(1/0.07)``; the weights of the cosine classifiers that the model
+    names in ``text_classifiers`` are its ``obj_text_features`` table where
+    it has one.  Values are drawn on the CPU from ``generator`` and copied
+    to the model's device."""
     table = getattr(model, "obj_text_features", None)
+    text_weights = {f"{m}.weight" for m in getattr(model, "text_classifiers", ())}
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if table is not None and name in ("obj_predictor_3d.weight",
-                                              "obj_predictor_2d.weight"):
+            if table is not None and name in text_weights:
                 val = torch.as_tensor(np.asarray(table, np.float32))
                 if val.shape != p.shape:
                     raise ValueError(f"obj_text_features {tuple(val.shape)} != {tuple(p.shape)}")
-            elif leaf == "obj_logit_scale":
+            elif leaf.endswith("logit_scale"):
                 val = torch.tensor(math.log(1 / 0.07))
             elif leaf == "kernel":                       # ChannelDense (C, F)
                 val = torch.randn(p.shape, generator=generator) / math.sqrt(p.shape[0])

@@ -1,9 +1,11 @@
 """Model registry: config NAME -> (model, train loss) (counterpart of
 ``vlsat_tpu/models/registry.py``).
 
-The port builds the flagship ``Mmgnet`` entry, paired with
-``vlsat_total_loss``; every other model of the JAX registry raises until the
-variants are ported (ROADMAP.md, queue 1 item 4).
+Every entry of the JAX registry but the ``SGGpoint`` family is built, with
+the same config fields, loss partials and in21k widths; ``SGGpoint`` and
+``SGGpointBaseline`` raise until their point backbone and graph layer are
+ported (ROADMAP.md, queue 1 item 4).  ``fused_pointnet`` stays off in every
+entry, as in JAX.
 """
 
 from __future__ import annotations
@@ -14,24 +16,22 @@ from typing import Optional
 import numpy as np
 
 from vlsat_tpu_torch.models.mmgnet import MMGNet, MMGNetConfig
+from vlsat_tpu_torch.models.mmteacher import MMTeacher, mmteacher_loss
+from vlsat_tpu_torch.models.variants import SGFN, SGPN, MMGNetSingle, SGFNConfig, SGPNConfig
 from vlsat_tpu_torch.train import losses
 
-# the JAX registry's other entries
-_NOT_PORTED = ("MmgnetSingle", "SGFN", "SGPN", "MMteacher", "MmgnetIn21k", "SGGpoint",
-               "SGGpointBaseline")
+_NOT_PORTED = ("SGGpoint", "SGGpointBaseline")
 _NN_EDGE_MODES = ("edge", "gather", "onehot")
 
 
-def mmgnet_config(num_obj: int, num_rel: int, mcfg) -> MMGNetConfig:
-    """The ``MMGNetConfig`` of the ``Mmgnet`` entry for a config's MODEL
-    section (attribute access).
+def model_config(name: str, num_obj: int, num_rel: int, mcfg):
+    """The config dataclass of registry entry ``name`` for a config's MODEL
+    section (attribute access), field for field as the JAX registry fills
+    it.
 
-    The object encoder's input width follows ``USE_RGB`` / ``USE_NORMAL``
-    (3, plus 3 for each), as the dataset appends those channels; flax infers
-    it from the batch.  ``USE_SPATIAL=false`` raises: the port's forward
-    always appends the descriptor's spatial features, and the switch changes
-    layer widths, so it comes with the variants.  ``fused_pointnet`` stays
-    off, as in the JAX registry.
+    The encoders' input width ``point_channels`` follows ``USE_RGB`` /
+    ``USE_NORMAL`` (3, plus 3 for each), as the dataset appends those
+    channels; flax infers it from the batch.
 
     ``nn_edge_mode``: the JAX package's placements of the first nn_edge
     layer's node projections (vlsat_tpu/models/gnn.py:146-159): "edge"
@@ -39,38 +39,68 @@ def mmgnet_config(num_obj: int, num_rel: int, mcfg) -> MMGNetConfig:
     gathers, "onehot" gathers with a one-hot matmul (a TPU layout trick,
     not ported).  The three compute the same function, so the port
     computes all three with its one formulation; any other value raises."""
-    if not mcfg.USE_SPATIAL:
+    if name in _NOT_PORTED:
         raise NotImplementedError(
-            "USE_SPATIAL=false is not ported yet (ROADMAP.md, queue 1 item 4)")
+            f"model {name!r} is not ported yet (ROADMAP.md, queue 1 item 4: the SGGpoint "
+            "family)")
     mode = mcfg.get("nn_edge_mode", "edge")
     if mode not in _NN_EDGE_MODES:
         raise ValueError(f"unknown nn_edge_mode {mode!r}")
-    return MMGNetConfig(
-        num_obj_classes=num_obj, num_rel_classes=num_rel,
-        point_feature_size=mcfg.point_feature_size,
-        dim_atten=mcfg.DIM_ATTEN, num_heads=mcfg.NUM_HEADS,
-        depth=mcfg.N_LAYERS, gcn_aggr=mcfg.GCN_AGGR,
-        dropout_atten=mcfg.DROP_OUT_ATTEN, use_gcn_edge=mcfg.USE_GCN_EDGE,
-        clip_feat_dim=mcfg.clip_feat_dim, adapter_alpha=mcfg.adapter_alpha,
-        multi_rel_outputs=mcfg.multi_rel_outputs,
-        point_channels=3 + 3 * bool(mcfg.get("USE_RGB", False))
-        + 3 * bool(mcfg.get("USE_NORMAL", False)),
-    )
+    channels = (3 + 3 * bool(mcfg.get("USE_RGB", False))
+                + 3 * bool(mcfg.get("USE_NORMAL", False)))
+    gnn = dict(dim_atten=mcfg.DIM_ATTEN, num_heads=mcfg.NUM_HEADS, depth=mcfg.N_LAYERS,
+               gcn_aggr=mcfg.GCN_AGGR, dropout_atten=mcfg.DROP_OUT_ATTEN,
+               use_gcn_edge=mcfg.USE_GCN_EDGE, use_spatial=mcfg.USE_SPATIAL)
+    common = dict(num_obj_classes=num_obj, num_rel_classes=num_rel,
+                  multi_rel_outputs=mcfg.multi_rel_outputs, point_channels=channels)
+    if name in ("Mmgnet", "MmgnetSingle"):
+        return MMGNetConfig(**common, **gnn, point_feature_size=mcfg.point_feature_size,
+                            clip_feat_dim=mcfg.clip_feat_dim,
+                            adapter_alpha=mcfg.adapter_alpha)
+    if name == "MMteacher":
+        return MMGNetConfig(**common, **gnn)
+    if name == "MmgnetIn21k":
+        # 768-d ImageNet-21k features, no adapter, plain classifiers
+        # (reference model_in21k.py:45,76,144-156,295-296)
+        return MMGNetConfig(**common, **gnn, point_feature_size=760, dim_node=768,
+                            dim_edge=768, clip_feat_dim=768, cosine_classifier=False,
+                            use_adapter=False, use_mlp_3d=False)
+    if name == "SGFN":
+        gnn["edge_feature_size"] = mcfg.get("edge_feature_size", 256)
+        return SGFNConfig(**common, **gnn)
+    if name == "SGPN":
+        return SGPNConfig(**common, edge_feature_size=mcfg.get("edge_feature_size", 256))
+    raise ValueError(f"unknown model NAME {name!r}")
+
+
+def needs_union_points(name: str) -> bool:
+    """Whether registry entry ``name`` reads the per-edge union point clouds
+    (``rel_points``), so that its dataset must build them."""
+    return name == "SGPN"
 
 
 def build_model(name: str, num_obj: int, num_rel: int, mcfg,
                 obj_text_features: Optional[np.ndarray] = None):
-    """Returns ``(model, loss)``: an ``MMGNet`` of ``mmgnet_config`` on the
-    CPU with torch's default initialisation
-    (``train.state.create_train_state(..., seed=...)`` draws the seeded
-    weights), and ``vlsat_total_loss`` bound to the config's
-    ``multi_rel_outputs``."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md, queue 1 item 4); "
-            "the port builds 'Mmgnet'")
-    if name != "Mmgnet":
-        raise ValueError(f"unknown model NAME {name!r}")
-    loss = partial(losses.vlsat_total_loss, multi_rel=mcfg.multi_rel_outputs)
-    return MMGNet(mmgnet_config(num_obj, num_rel, mcfg),
-                  obj_text_features=obj_text_features), loss
+    """Returns ``(model, loss)``: the model of ``model_config`` on the CPU
+    with torch's default initialisation (``train.state.create_train_state(...,
+    seed=...)`` draws the seeded weights), and the JAX registry's loss,
+    bound as it binds it.  ``Mmgnet`` with ``USE_SPATIAL=false`` raises
+    (``MMGNet`` refuses node features narrower than ``dim_node``; the JAX
+    model fails on them too)."""
+    cfg = model_config(name, num_obj, num_rel, mcfg)
+    multi = mcfg.multi_rel_outputs
+    if name == "Mmgnet":
+        return (MMGNet(cfg, obj_text_features=obj_text_features),
+                partial(losses.vlsat_total_loss, multi_rel=multi))
+    if name == "MmgnetSingle":
+        return (MMGNetSingle(cfg, obj_text_features=obj_text_features),
+                partial(losses.vlsat_single_loss, multi_rel=multi))
+    if name == "MMteacher":
+        return MMTeacher(cfg, obj_text_features=obj_text_features), mmteacher_loss
+    if name == "MmgnetIn21k":
+        # in21k drops the mimic terms from the total (model_in21k.py:368-375)
+        return MMGNet(cfg), partial(losses.vlsat_total_loss, multi_rel=multi,
+                                    with_mimic=False)
+    if name == "SGFN":
+        return SGFN(cfg), partial(losses.sgfn_loss, multi_rel=multi)
+    return SGPN(cfg), losses.sgpn_loss

@@ -1,5 +1,5 @@
-"""Post-norm multi-head attention and the distance-bias MLP (counterpart of
-``vlsat_tpu/models/transformer.py:17-52,94-109``).
+"""Post-norm multi-head attention, the distance-bias MLP and the sinusoid
+position tables (counterpart of ``vlsat_tpu/models/transformer.py``).
 
 The JAX package's LayerNorms are flax's, with eps 1e-6 (torch's default is
 1e-5), so every LayerNorm here sets eps=1e-6.
@@ -43,6 +43,44 @@ class MultiHeadAttention(nn.Module):
                                     bias_way=bias_way, q_mask=q_mask, k_mask=k_mask)
         out = self.drop(self.fc_o(out.flatten(-2)), rng)
         return self.layer_norm(q + out)
+
+
+def position_embedding(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Sinusoid position embedding (transformer.py:55-66): even channels
+    sin, odd channels cos, frequency 10000^(2i/d).  (P,) -> (P, d_model)."""
+    pos = positions.reshape(-1, 1).to(torch.float32)
+    dim = torch.arange(d_model // 2, dtype=torch.float32, device=pos.device).reshape(1, -1)
+    angle = pos / torch.pow(10000.0, 2 * dim / d_model)
+    out = torch.zeros(pos.shape[0], d_model, device=pos.device)
+    out[:, ::2] = torch.sin(angle)
+    out[:, 1::2] = torch.cos(angle)
+    return out
+
+
+def sinusoid_encoding_table(max_len: int, d_model: int,
+                            padding_idx: int | None = None) -> torch.Tensor:
+    """(max_len, d_model) table of ``position_embedding``; the row at
+    ``padding_idx`` is zero (transformer.py:69-75)."""
+    out = position_embedding(torch.arange(max_len), d_model)
+    if padding_idx is not None:
+        out[padding_idx] = 0.0
+    return out
+
+
+class PositionWiseFeedForward(nn.Module):
+    """Post-norm residual FFN (transformer.py:78-92):
+    LayerNorm(x + Dropout(fc2(Dropout(relu(fc1(x))))))."""
+
+    def __init__(self, d_model: int = 512, d_ff: int = 2048, dropout: float = 0.1):
+        super().__init__()
+        self.fc1 = nn.Linear(d_model, d_ff)
+        self.fc2 = nn.Linear(d_ff, d_model)
+        self.drop = Dropout(dropout)
+        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, x, rng=None):
+        h = self.drop(torch.relu(self.fc1(x)), rng)
+        return self.layer_norm(x + self.drop(self.fc2(h), rng))
 
 
 class DistanceBiasMLP(nn.Module):

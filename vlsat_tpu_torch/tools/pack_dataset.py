@@ -12,7 +12,10 @@ independent point-sampling draws of the train split (the loader cycles one
 per epoch).  ``--workers n`` prepares scenes in n spawned processes, with
 per-scene seeds, so the output does not depend on n.  With
 ``MODEL.triplet_text_cache`` (multi-label), the train split carries the
-rel-mimic text targets.
+rel-mimic text targets.  For a model that reads the per-edge union point
+clouds (``SGPN``: ``models.registry.needs_union_points``) both splits carry
+them, as the runner builds them (the JAX tool packs them only under
+``dataset.with_union_points``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ def main(argv=None):
     from vlsat_tpu_torch.config import load_config
     from vlsat_tpu_torch.data.dataset import SSGScenes
     from vlsat_tpu_torch.data.packed import build_scenes, pack_scenes
+    from vlsat_tpu_torch.models.registry import needs_union_points
 
     cfg = load_config(args.config)
     d = cfg.dataset
@@ -60,6 +64,8 @@ def main(argv=None):
             root=d.root, scans_root=d.scans_root, split=f"{split}_scans",
             label_file=d.label_file, num_points=d.num_points,
             num_points_union=d.num_points_union,
+            # as the runner builds them
+            with_union_points=d.with_union_points or needs_union_points(cfg.NAME),
             multi_view_root=d.multi_view_root, cache_root=d.cache_root,
             feat_dim=cfg.MODEL.clip_feat_dim, multi_rel=cfg.MODEL.multi_rel_outputs,
             triplet_text_lookup=text_lookup if is_train else None,

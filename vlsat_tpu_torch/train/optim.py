@@ -30,7 +30,7 @@ GROUPS = (("base", 1.0), ("mmg_obj", 0.25), ("mmg_rel", 0.5), ("obj_predictor", 
 
 
 def label_params(names: Iterable[str], freeze_non_predictor: bool = False) -> Dict[str, str]:
-    """Group label of every parameter name of the port's ``MMGNet``
+    """Group label of every parameter name of a model of the port
     (``named_parameters`` keys), as ``label_params`` labels the bridged flax
     leaf."""
     labels = {}

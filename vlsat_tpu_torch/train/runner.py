@@ -38,8 +38,8 @@ from vlsat_tpu_torch.data.resident import (ResidentEvalLoader, ResidentGroupedEv
                                            ResidentScenes, epoch_permutations, split_nbytes)
 from vlsat_tpu_torch.device import resolve_device
 from vlsat_tpu_torch.eval.engine import evaluate
-from vlsat_tpu_torch.models.mmgnet import MMGNetConfig
-from vlsat_tpu_torch.models.registry import build_model, mmgnet_config
+from vlsat_tpu_torch.models.mmgnet import MMGNet
+from vlsat_tpu_torch.models.registry import build_model, model_config, needs_union_points
 from vlsat_tpu_torch.serving import BatchedServer, HTTPFrontend
 from vlsat_tpu_torch.train.checkpoint import CheckpointManager
 from vlsat_tpu_torch.train.optim import make_optimizer, set_schedule_position
@@ -51,9 +51,9 @@ from vlsat_tpu_torch.utils.logging import MetricLogger
 from vlsat_tpu_torch.utils.progbar import Progbar
 
 
-def model_config_from(cfg: Config, num_obj: int, num_rel: int) -> MMGNetConfig:
-    """The ``MMGNetConfig`` that the registry builds for ``cfg``."""
-    return mmgnet_config(num_obj, num_rel, cfg.MODEL)
+def model_config_from(cfg: Config, num_obj: int, num_rel: int):
+    """The config dataclass that the registry builds ``cfg.NAME`` with."""
+    return model_config(cfg.NAME, num_obj, num_rel, cfg.MODEL)
 
 
 class Runner:
@@ -71,7 +71,7 @@ class Runner:
             root=d.root, scans_root=d.scans_root, label_file=d.label_file,
             num_points=d.num_points, num_points_union=d.num_points_union,
             multi_view_root=d.multi_view_root, cache_root=d.cache_root,
-            with_union_points=d.with_union_points,
+            with_union_points=d.with_union_points or needs_union_points(cfg.NAME),
             feat_dim=cfg.MODEL.clip_feat_dim, multi_rel=cfg.MODEL.multi_rel_outputs,
             # extra point channels (reference load_mesh, dataset_3dssg.py:38-58)
             use_rgb=cfg.MODEL.get("USE_RGB", False),
@@ -381,13 +381,18 @@ class Runner:
         except OSError:
             pass
 
+    def _branch_3d_only(self) -> bool:
+        """``EVAL_3D_ONLY`` is the serving mode of an ``MMGNet``; the other
+        models run their full forward under it, as in JAX."""
+        return bool(self.cfg.get("EVAL_3D_ONLY", False)) and isinstance(self.model, MMGNet)
+
     # ------------------------------------------------------------------ serve
     def serve(self, host: str = "127.0.0.1", port: int = 8764, max_batch: int = 32,
               deadline_ms: float = 5.0) -> HTTPFrontend:
         """The deployment frontend: a micro-batching ``BatchedServer`` behind
-        an ``HTTPFrontend``, on the loaded state.  ``EVAL_3D_ONLY`` picks the
-        3D branch alone, as in ``validation()``; by default the dual forward
-        runs and the answers carry its 3D outputs.  Returns the frontend
+        an ``HTTPFrontend``, on the loaded state.  ``EVAL_3D_ONLY`` picks an
+        ``MMGNet``'s 3D branch alone, as in ``validation()``; by default the
+        full forward runs and the answers carry its 3D outputs.  Returns the frontend
         unstarted: ``.serve_forever()`` (the CLI) or a ``with`` block."""
         if self.state is None:
             raise RuntimeError("call load() first")
@@ -396,7 +401,7 @@ class Runner:
             max_batch=max_batch, deadline_ms=deadline_ms,
             buckets=tuple(self.cfg.dataset.node_buckets),
             feat_dim=self.cfg.MODEL.clip_feat_dim, num_rel_classes=self.num_rel,
-            branch_3d_only=bool(self.cfg.get("EVAL_3D_ONLY", False)))
+            branch_3d_only=self._branch_3d_only())
         return HTTPFrontend(server, host=host, port=port)
 
     # ------------------------------------------------------------------- eval
@@ -405,13 +410,12 @@ class Runner:
         """The metric suite over the validation split.  The reference
         evaluates one scene at a time (model.py:186); the metrics do not
         depend on the batch size (``EVAL_BATCH_SIZE``).  ``EVAL_3D_ONLY``
-        runs the 3D branch alone (its outputs are the same; the 2D metric
+        runs an ``MMGNet``'s 3D branch alone (its outputs are the same; the 2D metric
         families are then absent).  ``save`` writes the artifacts under
         ``PATH/results/NAME/exp``."""
         if self.state is None:
             raise RuntimeError("call load() first")
-        eval_fn = make_eval_step(self.model,
-                                 branch_3d_only=bool(self.cfg.get("EVAL_3D_ONLY", False)),
+        eval_fn = make_eval_step(self.model, branch_3d_only=self._branch_3d_only(),
                                  device=self.device)
         save_dir = os.path.join(self.cfg.PATH, "results", self.cfg.NAME,
                                 self.cfg.get("exp", "default")) if save else None

@@ -12,14 +12,15 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch import nn
 
-from vlsat_tpu_torch.models.mmgnet import MMGNet, init_parameters
+from vlsat_tpu_torch.models.mmgnet import init_parameters
 from vlsat_tpu_torch.train.optim import OptimizerSpec
 
 
 @dataclasses.dataclass
 class TrainState:
-    model: MMGNet
+    model: nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     step: int = 0
@@ -35,7 +36,7 @@ class TrainState:
         self.step = int(state["step"])
 
 
-def create_train_state(model: MMGNet, optimizer: OptimizerSpec,
+def create_train_state(model: nn.Module, optimizer: OptimizerSpec,
                        seed: Optional[int] = None) -> TrainState:
     """The optimizer and scheduler of ``optimizer`` over ``model``'s
     parameter groups, at step 0.  With ``seed`` the weights are first drawn

@@ -23,6 +23,7 @@ from typing import Callable, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from vlsat_tpu_torch.data.resident import gather_rows
 from vlsat_tpu_torch.data.wire import decode_wire
@@ -55,7 +56,7 @@ def _materialize_text(batch: SceneBatch, table) -> SceneBatch:
     return batch.replace(rel_text_feat=table[batch.rel_text_idx.long()], rel_text_idx=None)
 
 
-def make_train_step(model: MMGNet, optimizer: OptimizerSpec, lambda_o: float = 0.1,
+def make_train_step(model: nn.Module, optimizer: OptimizerSpec, lambda_o: float = 0.1,
                     objective=None, text_table=None, device=None
                     ) -> Callable[[TrainState, SceneBatch, int], Tuple[TrainState, Aux]]:
     """Returns ``train_step(state, batch, rng) -> (state, aux)`` for a state
@@ -112,7 +113,7 @@ def _unstack(batches: SceneBatch, i: int) -> SceneBatch:
                          for f in dataclasses.fields(SceneBatch)})
 
 
-def make_multi_train_step(model: MMGNet, optimizer: OptimizerSpec, lambda_o: float = 0.1,
+def make_multi_train_step(model: nn.Module, optimizer: OptimizerSpec, lambda_o: float = 0.1,
                           objective=None, text_table=None, device=None
                           ) -> Callable[[TrainState, SceneBatch, int], Tuple[TrainState, Aux]]:
     """K train steps per call over a ``stack_batches`` stack, moved to the
@@ -136,7 +137,7 @@ def make_multi_train_step(model: MMGNet, optimizer: OptimizerSpec, lambda_o: flo
     return multi_step
 
 
-def make_resident_multi_train_step(model: MMGNet, optimizer: OptimizerSpec,
+def make_resident_multi_train_step(model: nn.Module, optimizer: OptimizerSpec,
                                    split_batch: SceneBatch = None, batch_size: int = 8,
                                    lambda_o: float = 0.1, objective=None, text_table=None,
                                    device=None):
@@ -177,7 +178,7 @@ def make_resident_multi_train_step(model: MMGNet, optimizer: OptimizerSpec,
     return bound
 
 
-def make_eval_step(model: MMGNet, branch_3d_only: bool = False, device=None
+def make_eval_step(model: nn.Module, branch_3d_only: bool = False, device=None
                    ) -> Callable[[Mapping[str, torch.Tensor], SceneBatch],
                                  Dict[str, torch.Tensor]]:
     """Returns ``eval_step(state, batch)``: moves a (wire-encoded) host
@@ -186,9 +187,13 @@ def make_eval_step(model: MMGNet, branch_3d_only: bool = False, device=None
     ``torch.inference_mode()`` with the weights of ``state`` (the model's
     ``state_dict`` keys, on ``device``; a trained state's
     ``state.model.state_dict()``, which shares the model's storage).  The dual-branch forward by default,
-    as in JAX; ``branch_3d_only=True`` is the serving mode."""
-    if not isinstance(model, MMGNet):
-        raise ValueError(f"make_eval_step takes an MMGNet, got {type(model).__name__}")
+    as in JAX; ``branch_3d_only=True`` is the serving mode of ``MMGNet``
+    and raises for any other model, as in JAX (step.py:203-211).  Every
+    model of the registry runs through it."""
+    if branch_3d_only and not isinstance(model, MMGNet):
+        raise ValueError(
+            f"branch_3d_only is an MMGNet serving mode, got {type(model).__name__}")
+    kwargs = {"branch_3d_only": True} if branch_3d_only else {}
     dev = resolve_device(device)
     _fp32()
     model.eval()
@@ -199,9 +204,8 @@ def make_eval_step(model: MMGNet, branch_3d_only: bool = False, device=None
             model.eval()
         with torch.inference_mode():
             batch = decode_wire(batch.to(dev, non_blocking=True))
-            return torch.func.functional_call(
-                model, dict(state), (batch,), {"branch_3d_only": branch_3d_only},
-                strict=True)
+            return torch.func.functional_call(model, dict(state), (batch,), kwargs,
+                                              strict=True)
 
     eval_step.device = dev  # where eval.engine.evaluate sends the batches
     return eval_step
