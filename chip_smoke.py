@@ -86,28 +86,51 @@ Phases, each of which fails the run (non-zero exit, no result line):
     p50 / p99 latency), ``/healthz`` counting every request, 400 on a
     payload without ``descriptor``, and exit code 0 within 30 s of SIGINT;
 12. the model zoo: ``MmgnetSingle``, ``SGFN``, ``SGPN`` (256-point union
-    clouds), ``MMteacher`` and ``MmgnetIn21k`` (768-d 2D features) from
-    ``models.registry.build_model`` at the default MODEL widths with seeded
-    weights; each evaluated by ``eval.engine.evaluate`` at B=32 over phase
-    8's 5-9-node split (finite metrics; segment-max launched 2, 2, 0, 4 and
-    4 times per batch, counters at 0 just before), its card forward equal
-    to a CPU forward at the model gate on two batches with object and
-    predicate ranks bit-equal, a profiled pass at bucket 12; 10 timed train
-    steps at B=8 with the registry's loss and text targets (no kernel
-    launch), a profiled few, the loss falling over 8 steps on one batch,
-    and one fp64 step card against CPU (loss rtol 1e-4, every gradient
-    leaf at the gate); then ``main --mode train`` (1 epoch) and ``--mode
-    eval`` for ``NAME=SGFN`` on phase 11's pack and JSON (eval metrics
-    equal to the closing validation's, no tolerance; 2 segment-max
+    clouds), ``MMteacher``, ``MmgnetIn21k`` (768-d 2D features),
+    ``SGGpoint`` and ``SGGpointBaseline`` (DGCNN backbone, P=128, k=20,
+    768 / 512 wide) from ``models.registry.build_model`` at the default
+    MODEL widths with seeded weights; each evaluated by
+    ``eval.engine.evaluate`` at B=32 over phase 8's 5-9-node split (finite
+    metrics; segment-max launched 2, 2, 0, 4, 4, 0 and 0 times per batch,
+    counters at 0 just before), its card forward equal to a CPU forward at
+    the model gate on two batches with object and predicate ranks
+    bit-equal (for the SGGpoint family the (point, stage) kNN neighbour
+    sets of card and CPU are counted, more than 1e-3 of them differing
+    fails, and the gate holds on every scene whose sets all agree), a
+    profiled pass at bucket 12; 10 timed train steps at B=8 with the
+    registry's loss and text targets (no kernel launch), a profiled few,
+    the loss falling over 8 steps on one batch, and one fp64 step card
+    against CPU (loss rtol 1e-4, every gradient leaf at the gate, every
+    neighbour set equal); then ``main --mode train`` (1 epoch) and
+    ``--mode eval`` for ``NAME=SGFN`` on phase 11's pack and JSON (eval
+    metrics equal to the closing validation's, no tolerance; 2 segment-max
     launches per evaluated batch); then a seeded directory of reference
     per-module ``.pth`` files for ``Mmgnet`` imported onto the card by
     ``interop.torch_import`` (dual forward equal to the CPU's at the model
-    gate).  Phases 10-12's work directories are removed at its end.
+    gate);
+13. the deployment artifacts: phase 4's model's 3D-only forward exported
+    by ``serving_export.export_serving_artifact`` at B=32, buckets 16 and
+    48 (both kernels are ``vlsat::*`` operators inside the programs;
+    tracing launches none), reloaded in a subprocess that imports no module
+    of ``vlsat_tpu_torch.models`` (outputs within rtol/atol 1e-6 of the
+    live eval step's on one batch a bucket of phase 5's scenes, kernel
+    launches equal); phase 5's scenes served through ``BatchedServer`` on
+    the artifact and on the live model in turns (scenes/s of each);
+    ``python -m vlsat_tpu_torch.main --mode trace`` on phase 11's JSON; one
+    evaluation under ``utils.profiling.trace`` in a fresh process, whose
+    Chrome trace must hold one event of each kernel a counted launch, and
+    the same evaluation profiled in this process (its kernel records
+    against its launch calls, recorded); the phase's launches are read
+    there, and only then is the host time of a kernel call through its
+    operator and through its ctypes wrapper taken.  Phases 10-13's work
+    directories are removed at its end.
 
 The last lines are a ``variants`` line (per model: evaluated
 scenes/s, wall ms per batch, trained scenes/s, step wall ms, peak memory,
-segment-max launches), a JSON ``kernels`` line (with each kernel's
-launches in every phase), the card's name and power limit as nvidia-smi reports them,
+segment-max launches), an ``export`` line (export seconds a bucket, load
+seconds, artifact and ``.pt2`` bytes, scenes/s of both servers, dispatch
+microseconds), a JSON ``kernels`` line (with each kernel's launches in
+every phase), the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``.
 """
 
@@ -476,19 +499,76 @@ def triplet_margin(out: dict, batch, tag: str, b: int, e: int, k: int) -> float:
     return gap.min().item()
 
 
-def check_eval_batch(model, state, dev, batch) -> dict:
+@contextlib.contextmanager
+def knn_sets():
+    """Records the neighbour indices of every kNN that ``ops.dgcnn`` computes
+    in the block (the SGGpoint family's four EdgeConv stages a forward),
+    each (B, N, P, k) sorted along k, on the CPU."""
+    from vlsat_tpu_torch.ops import dgcnn
+
+    real, calls = dgcnn.knn_indices, []
+
+    def record(x, k):
+        idx = real(x, k)
+        calls.append(idx.sort(dim=-1).values.cpu())
+        return idx
+
+    dgcnn.knn_indices = record
+    try:
+        yield calls
+    finally:
+        dgcnn.knn_indices = real
+
+
+def knn_mismatches(got: list, want: list, obj_mask) -> torch.Tensor:
+    """(B, N, P) count of stages whose neighbour set differs between two
+    recorded forwards, on valid nodes (a padded node's all-zero cloud ties
+    every distance, so which of its points is kept does not matter)."""
+    if len(got) != len(want):
+        fail(f"kNN stages recorded: {len(got)} against {len(want)}")
+    diff = sum((g != w).any(-1).int() for g, w in zip(got, want))
+    return diff * obj_mask[..., None].int()
+
+
+def check_eval_batch(model, state, dev, batch, knn: bool = False) -> dict:
     """One batch of the 5-9-node split: the card's forward against a CPU
     forward of the same weights (model gate), and the card's ranks against
-    the CPU rank functions on the card's own outputs."""
+    the CPU rank functions on the card's own outputs.
+
+    ``knn`` (the SGGpoint family): card and CPU round the kNN distances
+    differently, so near-tied neighbours can flip.  Every (point, stage)
+    neighbour set is compared; more than 1e-3 of the valid point rows
+    differing fails; the outputs are held at the gate on every scene whose
+    sets all agree (attention and the GCN mix a scene's nodes, so one
+    flipped set moves all of its scene's outputs), and fewer than 3/4 of the
+    batch's scenes so held fails."""
     from vlsat_tpu_torch.data.wire import encode_wire
     from vlsat_tpu_torch.eval import metrics as M
     from vlsat_tpu_torch.train.step import make_eval_step
 
     wire = encode_wire(batch)
-    card = make_eval_step(model, device=dev)(state, wire)
     cpu_state = {k: v.cpu() for k, v in state.items()}
-    ref = make_eval_step(model, device="cpu")(cpu_state, wire)
+    with knn_sets() as card_sets:
+        card = make_eval_step(model, device=dev)(state, wire)
+    with knn_sets() as cpu_sets:
+        ref = make_eval_step(model, device="cpu")(cpu_state, wire)
     masks = {"obj": batch.obj_mask, "rel": batch.edge_mask}
+    knn_report = {}
+    if knn:
+        diff = knn_mismatches(card_sets, cpu_sets, batch.obj_mask)
+        rows = int(batch.obj_mask.sum()) * batch.obj_points.shape[2] * len(card_sets)
+        flipped = int(diff.sum())
+        agree = (diff.flatten(1).sum(1) == 0)
+        knn_report = {"knn_stages": len(card_sets), "knn_point_rows": rows,
+                      "knn_set_mismatches": flipped,
+                      "scenes_gated": int(agree.sum()), "scenes": int(agree.numel())}
+        if flipped > 1e-3 * rows:
+            fail(f"eval forward: {flipped} of {rows} (point, stage) neighbour sets differ "
+                 "between the card and the CPU (more than 1e-3)")
+        if 4 * int(agree.sum()) < 3 * agree.numel():
+            fail(f"eval forward: only {int(agree.sum())} of {agree.numel()} scenes have every "
+                 "neighbour set equal on the card and the CPU (fewer than 3/4)")
+        masks = {k: m & agree[:, None] for k, m in masks.items()}
     for key in ("obj_logits_3d", "obj_logits_2d", "rel_cls_3d", "rel_cls_2d"):
         got, want = card[key].cpu(), ref[key]
         m = masks[key.split("_")[0]]
@@ -514,7 +594,12 @@ def check_eval_batch(model, state, dev, batch) -> dict:
             mism.append({"branch": tag, "scene": b, "edge": e, "predicate": k,
                          "card_rank": tg[b, e, k].item(), "cpu_rank": tw[b, e, k].item(),
                          "margin": triplet_margin(host, batch, tag, b, e, k)})
+    if knn:
+        knn_report["gated_max_abs_diff"] = {
+            k: (card[k].cpu() - ref[k])[masks[k.split("_")[0]]].abs().max().item()
+            for k in ("obj_logits_3d", "obj_logits_2d", "rel_cls_3d", "rel_cls_2d")}
     return {"max_abs_diff": {k: (card[k].cpu() - ref[k]).abs().max().item() for k in ref},
+            **knn_report,
             "triplet_mismatches": len(mism), "triplet_mismatch_examples": mism[:10],
             "triplet_ranks_checked": int((batch.edge_mask[..., None] & (batch.gt_rels > 0)
                                           ).sum()) * 2}
@@ -1499,8 +1584,10 @@ def runner(dev) -> dict:
 
 # segment-max launches of one eval forward, per registry entry: one per
 # GraphEdgeAttenNetwork layer (depth 2), both towers of the teacher/student
-# and both branches of in21k; SGPN has no graph network
-VARIANTS = {"MmgnetSingle": 2, "SGFN": 2, "SGPN": 0, "MMteacher": 4, "MmgnetIn21k": 4}
+# and both branches of in21k; SGPN has no graph network, and the SGGpoint
+# family aggregates by mean and add (EdgeGCN), never by max
+VARIANTS = {"MmgnetSingle": 2, "SGFN": 2, "SGPN": 0, "MMteacher": 4, "MmgnetIn21k": 4,
+            "SGGpoint": 0, "SGGpointBaseline": 0}
 VARIANT_TRAIN_STEPS = 10
 NUM_POINTS_UNION = 256     # the JAX config's num_points_union
 
@@ -1566,7 +1653,8 @@ def variant_run(name: str, dev) -> dict:
                     "scenes_per_sec": scenes / wall, "wall_ms_per_batch": wall * 1e3 / nb,
                     "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
                     "launches": launches, "mean_recall_50": metrics["mean_recall_50"]}}
-    out["checks"] = [check_eval_batch(model, state, dev, b) for b in val[:2]]
+    knn = name.startswith("SGGpoint")
+    out["checks"] = [check_eval_batch(model, state, dev, b, knn=knn) for b in val[:2]]
     out["eval_profile"] = profile_eval(step, state, [b for b in val if b.num_nodes == 12])
 
     # train steps at B=8 with the registry's loss and text targets
@@ -1608,22 +1696,33 @@ def variant_run(name: str, dev) -> dict:
     # one fp64 step on the card and on the CPU from identical weights, dropout off
     batch = train[-1]  # batches come in bucket order: the last is at bucket 12
     pair = [dropout_off(variant_model(name, d, SEED + 12)[0]).double() for d in (dev, "cpu")]
-    step_losses = []
+    step_losses, sets = [], []
     for m, d in zip(pair, (dev, "cpu")):
         st = create_train_state(m, spec)
-        _, aux = make_train_step(m, spec, objective=loss, device=d)(
-            st, as_dtype(batch, torch.float64), 0)
+        with knn_sets() as calls:
+            _, aux = make_train_step(m, spec, objective=loss, device=d)(
+                st, as_dtype(batch, torch.float64), 0)
         step_losses.append(aux["loss"].item())
+        sets.append(calls)
     if not np.isclose(step_losses[0], step_losses[1], rtol=1e-4, atol=0):
         fail(f"variants, {name}: fp64 train step loss on the card {step_losses[0]} != CPU "
              f"{step_losses[1]} (rtol 1e-4)")
-    out["fp64_step"] = {"loss": step_losses, "gradients": grad_gate(
+    flipped = int(knn_mismatches(*sets, batch.obj_mask).sum())
+    if flipped:
+        fail(f"variants, {name}: {flipped} (point, stage) neighbour sets of the fp64 train "
+             "step differ between the card and the CPU")
+    out["fp64_step"] = {"loss": step_losses, "knn_stages": len(sets[0]),
+                        "knn_set_mismatches": flipped, "gradients": grad_gate(
         grads_of(pair[0]), grads_of(pair[1]), f"variants, {name}: fp64 train step")}
     e, t = out["eval"], out["train"]
+    flips = (f" ({sum(c['knn_set_mismatches'] for c in out['checks'])} of "
+             f"{sum(c['knn_point_rows'] for c in out['checks'])} (point, stage) neighbour "
+             f"sets differ; outputs gated on {sum(c['scenes_gated'] for c in out['checks'])} "
+             f"of {sum(c['scenes'] for c in out['checks'])} scenes; fp64: none)" if knn else "")
     log(f"variants, {name}: evaluated {e['scenes']} scenes at {e['scenes_per_sec']:.1f} "
         f"scenes/s ({e['wall_ms_per_batch']:.2f} ms a batch, segment-max "
         f"{launches['segment_max']} for {nb} batches); card forward and ranks equal the "
-        f"CPU's on 2 batches; trained {t['scenes_per_sec']:.1f} scenes/s "
+        f"CPU's on 2 batches{flips}; trained {t['scenes_per_sec']:.1f} scenes/s "
         f"({t['step_wall_ms']:.2f} ms a step, no kernel launch); loss "
         f"{fixed_losses[0]:.4f} -> {fixed_losses[-1]:.4f} in 8 steps; fp64 step card against "
         f"CPU: loss {step_losses[0]:.9g} / {step_losses[1]:.9g}, every gradient leaf at the gate")
@@ -1768,6 +1867,281 @@ def variants(dev) -> dict:
         f"card in {import_s:.2f} s; dual forward equals the CPU's (max abs {max(diffs.values()):.3g})")
     out["launches"] = {k: sum(m["eval"]["launches"][k] for m in out["models"].values())
                        for k in train_launches}
+    return out
+
+EXPORT_WORK = WORK.parent / "export"
+EXPORT_BUCKETS = (16, 48)  # the serving buckets of phase 5's 4-40-node scenes
+# the artifact's outputs against the live eval step, and its kernel
+# launches, in a process that imports no module of vlsat_tpu_torch.models
+RELOAD = """
+import json, sys, time
+import torch
+from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+from vlsat_tpu_torch.scene import SceneBatch
+from vlsat_tpu_torch.serving_export import load_serving_artifact
+art, inputs, out_path = sys.argv[1:4]
+t0 = time.perf_counter()
+step = load_serving_artifact(art, device="cuda")
+load_s = time.perf_counter() - t0
+outs, launches = [], []
+for fields in torch.load(inputs):
+    before = (segment_max.launches, pointnet_kernel.launches)
+    out = step(None, SceneBatch(**fields))
+    torch.cuda.synchronize()
+    launches.append([segment_max.launches - before[0], pointnet_kernel.launches - before[1]])
+    outs.append({k: v.cpu() for k, v in out.items()})
+torch.save({"outs": outs, "launches": launches, "load_s": load_s,
+            "models": sorted(m for m in sys.modules if m.startswith("vlsat_tpu_torch.models"))},
+           out_path)
+"""
+
+
+# one evaluation under utils.profiling.trace in a fresh process, where
+# torch.profiler keeps every kernel record (late in a long process it loses
+# the first ones of a session: PERF.md §7)
+PROFILE = """
+import json, sys
+import torch
+from vlsat_tpu_torch.eval.engine import evaluate
+from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+from vlsat_tpu_torch.scene import SceneBatch
+from vlsat_tpu_torch.train.step import make_eval_step
+from vlsat_tpu_torch.utils import profiling
+torch.backends.cuda.matmul.allow_tf32 = False
+inputs, log_dir = sys.argv[1:3]
+saved = torch.load(inputs)
+model = build_mmgnet(MMGNetConfig(fused_pointnet=True), device="cuda", seed=0)
+model.load_state_dict(saved["state"])
+batches = [SceneBatch(**f) for f in saved["batches"]]
+step = make_eval_step(model, device="cuda")
+evaluate(step, model.state_dict(), batches, verbose=False)
+torch.cuda.synchronize()
+before = (segment_max.launches, pointnet_kernel.launches)
+with profiling.trace(log_dir) as path:
+    evaluate(step, model.state_dict(), batches, verbose=False)
+    torch.cuda.synchronize()
+print(json.dumps({"path": path,
+                  "profiled": [segment_max.launches - before[0], pointnet_kernel.launches - before[1]],
+                  "total": [segment_max.launches, pointnet_kernel.launches]}))
+"""
+
+
+def trace_counts(path) -> dict:
+    """A Chrome trace's kernel records of each kernel, all its kernel
+    records and all its launch calls (the CUDA API launch events, which
+    the profiler records on the host)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [str(e.get("name")) for e in events if e.get("cat") == "kernel"]
+    return {"segment_max": sum("segment_max_kernel" in n for n in names),
+            "pointnet_fused": sum("pointnet_kernel" in n for n in names),
+            "kernel_records": len(names),
+            "launch_calls": sum(e.get("cat") in ("cuda_runtime", "cuda_driver")
+                                and "Launch" in str(e.get("name")) for e in events)}
+
+
+def serving_batch(scenes: list, bucket: int):
+    """BATCH of the scenes that fit ``bucket`` (cycled to fill the batch),
+    padded to it, as a host f32 batch."""
+    from vlsat_tpu_torch.scene import collate, full_edge_index, pad_scene
+
+    fit = [s for s in scenes if s["obj_points"].shape[0] <= bucket
+           and (bucket == EXPORT_BUCKETS[0] or s["obj_points"].shape[0] > EXPORT_BUCKETS[0])]
+    padded = []
+    for k in range(BATCH):
+        s = fit[k % len(fit)]
+        n = s["obj_points"].shape[0]
+        ei = full_edge_index(n)
+        padded.append(pad_scene(s["obj_points"], s["descriptor"], np.zeros((n, 512), np.float32),
+                                np.zeros(n, np.int32), ei, np.zeros((len(ei), 26), np.float32),
+                                n_max=bucket))
+    return collate(padded)
+
+
+def dispatch_us(dev) -> dict:
+    """Host microseconds a call to enqueue each kernel, through its ctypes
+    wrapper and through its PyTorch operator, at bucket 16's shapes (200
+    calls back to back, no synchronisation inside; turns direct, operator,
+    operator, direct)."""
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel as P
+    from vlsat_tpu_torch.ops.kernels import segment_max as S
+
+    rng = np.random.RandomState(SEED + 20)
+    data, ei, em = edge_inputs(rng, 16, dev, True)
+    pts = torch.from_numpy(rng.randn(BATCH, 16, 128, 3).astype(np.float32)).to(dev)
+    dims = (3, 64, 128, 768)
+    ws = [torch.from_numpy((rng.randn(b, a) / np.sqrt(a)).astype(np.float32)).to(dev).t()
+          for a, b in zip(dims, dims[1:])]
+    bs = [torch.zeros(b, device=dev) for b in dims[1:]]
+    calls = {"segment_max": (lambda: S.segment_max_cuda(data, ei, em, 16),
+                             lambda: S.segment_max(data, ei, em, 16)),
+             "pointnet_fused": (lambda: P._launch(pts, ws, bs, 128),
+                                lambda: P.pointnet_encode_fused(pts, ws, bs))}
+    out = {}
+    for name, (direct, op) in calls.items():
+        times = {"direct": [], "operator": []}
+        with torch.no_grad():
+            for kind, fn in (("direct", direct), ("operator", op), ("operator", op),
+                             ("direct", direct)):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    fn()
+                times[kind].append((time.perf_counter() - t0) / 200 * 1e6)
+                torch.cuda.synchronize()
+        out[name] = {k: float(np.mean(v)) for k, v in times.items()}
+        out[name]["added_us"] = out[name]["operator"] - out[name]["direct"]
+    return out
+
+
+def export_phase(model, dev, scenes) -> dict:
+    """Phase 13: the serving artifact, ``--mode trace`` and a profiled
+    evaluation, on the card."""
+    from vlsat_tpu_torch.eval.engine import evaluate
+    from vlsat_tpu_torch.main import main as cli
+    from vlsat_tpu_torch.serving import BatchedServer, bench_server
+    from vlsat_tpu_torch.serving_export import export_serving_artifact, load_serving_artifact
+    from vlsat_tpu_torch.train.step import make_eval_step
+    from vlsat_tpu_torch.utils import profiling
+
+    shutil.rmtree(EXPORT_WORK, ignore_errors=True)
+    EXPORT_WORK.mkdir(parents=True)
+    art = EXPORT_WORK / "artifact"
+    out: dict = {}
+    # 1. export the flagship's 3D-only forward (fused PointNet: both kernels
+    # are operators inside the programs); tracing launches no kernel.  The
+    # counters stay unreset from here to the read after step 5: they count
+    # the path's own launches (live step, reload, servers, trace, profiled
+    # evaluation), and the dispatch timing runs after that read
+    reset_launches()
+    t0 = time.monotonic()
+    manifest = export_serving_artifact(model, str(art), buckets=EXPORT_BUCKETS,
+                                       max_batch=BATCH, num_points=128, device=dev)
+    out["export_s"] = {b: e["export_s"] for b, e in manifest["buckets"].items()}
+    out["export_wall_s"] = time.monotonic() - t0
+    if any(read_launches().values()):
+        fail(f"export: tracing launched kernels: {read_launches()}")
+    out["artifact_bytes"] = sum(f.stat().st_size for f in art.iterdir())
+    out["pt2_bytes"] = {f.name: f.stat().st_size for f in art.glob("*.pt2")}
+
+    # 2. reload in a process without the model source; outputs and launches
+    # against the live eval step
+    batches = [serving_batch(scenes, b) for b in EXPORT_BUCKETS]
+    torch.save([vars(b) for b in batches], EXPORT_WORK / "inputs.pt")
+    live_step = make_eval_step(model, branch_3d_only=True, device=dev)
+    live, live_launches = [], []
+    for b in batches:
+        before = read_launches()
+        live.append({k: v.cpu() for k, v in live_step(model.state_dict(), b).items()})
+        torch.cuda.synchronize()
+        now = read_launches()
+        live_launches.append([now["segment_max"] - before["segment_max"],
+                              now["pointnet_fused"] - before["pointnet_fused"]])
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", RELOAD, str(art), str(EXPORT_WORK / "inputs.pt"),
+                           str(EXPORT_WORK / "outputs.pt")], capture_output=True, text=True,
+                          timeout=600, cwd=str(Path(__file__).resolve().parent),
+                          env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)))
+    if proc.returncode != 0:
+        fail(f"export: the reload process failed ({proc.returncode}): {proc.stderr[-4000:]}")
+    got = torch.load(EXPORT_WORK / "outputs.pt")
+    out["reload_process_s"] = time.monotonic() - t0
+    out["load_s_fresh_process"] = got["load_s"]
+    if got["models"]:
+        fail(f"export: the reload process imported {got['models']}")
+    if got["launches"] != live_launches or any(sm <= 0 or pn <= 0 for sm, pn in live_launches):
+        fail(f"export: artifact launches {got['launches']} != live {live_launches} "
+             "(segment-max, PointNet a batch)")
+    diffs = {}
+    for bucket, g, w in zip(EXPORT_BUCKETS, got["outs"], live):
+        for key in ("obj_logits_3d", "rel_cls_3d"):
+            diffs[f"{key}@{bucket}"] = (g[key] - w[key]).abs().max().item()
+            if not torch.allclose(g[key], w[key], rtol=1e-6, atol=1e-6):
+                fail(f"export: the artifact's {key} at bucket {bucket} differs from the live "
+                     f"step: max abs {diffs[f'{key}@{bucket}']}")
+    out["artifact_vs_live"] = {"max_abs_diff": diffs, "launches_per_batch": live_launches}
+    log(f"export: buckets {EXPORT_BUCKETS} exported in {out['export_s']} s, "
+        f"{out['artifact_bytes']} bytes; reloaded without the model source in "
+        f"{got['load_s']:.2f} s; outputs within 1e-6 of the live step (max abs "
+        f"{max(diffs.values()):.3g}), launches {got['launches']} equal to the live step's")
+
+    # 3. serve phase 5's scenes through BatchedServer on the artifact and on
+    # the live model, in turns
+    t0 = time.monotonic()
+    loaded = load_serving_artifact(str(art), device=dev)
+    out["load_s"] = time.monotonic() - t0
+    kw = dict(max_batch=BATCH, deadline_ms=5.0, buckets=EXPORT_BUCKETS)
+    rates = {"live": [], "artifact": []}
+    for kind in ("live", "artifact", "artifact", "live"):
+        server = (BatchedServer(model, device=dev, **kw) if kind == "live"
+                  else BatchedServer(eval_step=loaded, **kw))
+        with server:
+            for sc in scenes[:BATCH]:  # warm-up: first-call allocations per bucket
+                server.predict(sc, timeout=300)
+            res = bench_server(server, scenes, duration_s=3.0, clients=2 * BATCH)
+            torch.cuda.synchronize()
+        rates[kind].append(res["scenes_per_sec"])
+    out["serving_scenes_per_sec"] = rates
+    log(f"export: served {rates['artifact']} scenes/s on the artifact, {rates['live']} on the "
+        "live model (turns live, artifact, artifact, live)")
+
+    # 4. main --mode trace on phase 11's JSON
+    t0 = time.monotonic()
+    report = cli(["--config", str(RUN_WORK / "cfg.json"), "--mode", "trace"])
+    out["trace_command_s"] = time.monotonic() - t0
+    if not (report["checked_small"] and report["checked_large"]):
+        fail(f"export: main --mode trace reported {report}")
+    traced = Path(report["program_small"]).parent
+    out["trace_files"] = {f.name: f.stat().st_size for f in sorted(traced.iterdir())}
+
+    # 5. one evaluation under utils.profiling.trace (a warm-up, then the
+    # profiled one) in a fresh process: the Chrome trace holds one event of
+    # each kernel a counted launch
+    batches = labelled_splits(SEED + 2, large=())["val"][:3]
+    torch.save({"state": {k: v.cpu() for k, v in model.state_dict().items()},
+                "batches": [vars(b) for b in batches]}, EXPORT_WORK / "profile_inputs.pt")
+    proc = subprocess.run([sys.executable, "-c", PROFILE, str(EXPORT_WORK / "profile_inputs.pt"),
+                           str(EXPORT_WORK / "profile")], capture_output=True, text=True,
+                          timeout=600, cwd=str(Path(__file__).resolve().parent),
+                          env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)))
+    if proc.returncode != 0:
+        fail(f"export: the profiling process failed ({proc.returncode}): {proc.stderr[-4000:]}")
+    prof = json.loads(proc.stdout.strip().splitlines()[-1])
+    fresh = trace_counts(prof["path"])
+    found = [fresh["segment_max"], fresh["pointnet_fused"]]
+    if found != prof["profiled"] or not all(found):
+        fail(f"export: the profiled evaluation's trace holds {found} kernel events for "
+             f"{prof['profiled']} counted launches (segment-max, PointNet)")
+    # the same evaluation profiled in this process, recorded, not gated: its
+    # trace may lack the session's first kernel records
+    step = make_eval_step(model, device=dev)
+    evaluate(step, model.state_dict(), batches, verbose=False)
+    before = read_launches()
+    with profiling.trace(str(EXPORT_WORK / "profile_here")) as path:
+        evaluate(step, model.state_dict(), batches, verbose=False)
+        torch.cuda.synchronize()
+    here = trace_counts(path)
+    here["launches_counted"] = [read_launches()[k] - before[k]
+                                for k in ("segment_max", "pointnet_fused")]
+    out["profile"] = {"trace_bytes": os.path.getsize(prof["path"]), **fresh,
+                      "launches_counted": prof["profiled"], "in_this_process": here}
+    out["launches"] = read_launches()
+    for sub in (np.sum(got["launches"], 0).tolist(), prof["total"]):
+        out["launches"]["segment_max"] += sub[0]
+        out["launches"]["pointnet_fused"] += sub[1]
+    # 6. the host cost of the operator dispatch, after the read: its
+    # launches are not the path's
+    out["dispatch_us"] = dispatch_us(dev)
+    log(f"export: main --mode trace {out['trace_command_s']:.1f} s "
+        f"({sorted(out['trace_files'])}); profiled evaluation in a fresh process: {found} kernel "
+        f"events for {prof['profiled']} counted launches (segment-max, PointNet), in this "
+        f"process {[here['segment_max'], here['pointnet_fused']]} for "
+        f"{here['launches_counted']} ({here['kernel_records']} kernel records for "
+        f"{here['launch_calls']} launch calls); "
+        f"operator dispatch {out['dispatch_us']}")
+    shutil.rmtree(EXPORT_WORK, ignore_errors=True)
     shutil.rmtree(RUN_WORK, ignore_errors=True)
     shutil.rmtree(WORK, ignore_errors=True)
     return out
@@ -1888,8 +2262,14 @@ def main() -> None:
                "step_wall_ms": m["train"]["step_wall_ms"],
                "peak_memory_gib": max(m["eval"]["peak_memory_gib"],
                                       m["train"]["peak_memory_gib"]),
-               "segment_max_launches": m["eval"]["launches"]["segment_max"]}
+               "segment_max_launches": m["eval"]["launches"]["segment_max"],
+               "knn_set_mismatches": sum(c.get("knn_set_mismatches", 0) for c in m["checks"])}
         for name, m in zoo["models"].items()}}))
+    # 13. the deployment artifacts
+    exp = export_phase(model, dev, scenes)
+    for k in kernels:
+        k["launches_export"] = exp["launches"].get(k["name"], 0)
+    log(json.dumps({"export": exp}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

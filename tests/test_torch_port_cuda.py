@@ -16,6 +16,8 @@ its gradients per leaf at the gate of tests/test_parity_torch.py:568-575
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -558,11 +560,14 @@ def test_runner_epoch_and_validation_on_card(dev, tmp_path):
 
 
 @pytest.mark.parametrize("name,per_forward", [("MmgnetSingle", 2), ("SGFN", 2), ("SGPN", 0),
-                                               ("MMteacher", 4), ("MmgnetIn21k", 4)])
+                                               ("MMteacher", 4), ("MmgnetIn21k", 4),
+                                               ("SGGpoint", 0), ("SGGpointBaseline", 0)])
 def test_variant_eval_forward_on_card_matches_cpu(dev, name, per_forward):
     """A registry variant's eval forward on the card launches segment-max
-    once per graph layer and branch (none for SGPN) and equals the CPU's
-    forward of the same weights at the model gate."""
+    once per graph layer and branch (none for SGPN and the SGGpoint family)
+    and equals the CPU's forward of the same weights at the model gate (16
+    points an instance: the SGGpoint kNN takes every point, so no
+    neighbour set can differ)."""
     from vlsat_tpu_torch.config import load_config
     from vlsat_tpu_torch.data.synthetic import make_batch
     from vlsat_tpu_torch.models.mmgnet import init_parameters
@@ -590,3 +595,108 @@ def test_variant_eval_forward_on_card_matches_cpu(dev, name, per_forward):
     for key, w in want.items():
         m = masks[key.split("_")[0]]
         torch.testing.assert_close(got[key].cpu()[m], w[m], rtol=1e-3, atol=1e-4, msg=key)
+
+
+def _flagship_artifact(tmp_path, dev):
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.serving_export import export_serving_artifact
+
+    cfg = MMGNetConfig(num_obj_classes=20, num_rel_classes=7, fused_pointnet=True)
+    model = build_mmgnet(cfg, device=dev, seed=3)
+    export_serving_artifact(model, str(tmp_path), buckets=(8,), max_batch=4, num_points=32,
+                            device=dev)
+    return model
+
+
+def test_serving_artifact_on_card_equals_live_step(dev, tmp_path):
+    """The flagship (fused PointNet) exported on the card: the artifact's
+    outputs equal the live 3D-only step's at 1e-6, with the same kernel
+    launches (one PointNet and two segment-max a forward), and exporting
+    launches nothing."""
+    from vlsat_tpu_torch.data.synthetic import make_batch
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+    from vlsat_tpu_torch.serving_export import load_serving_artifact
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    before = (segment_max.launches, pointnet_kernel.launches)
+    model = _flagship_artifact(tmp_path, dev)
+    assert (segment_max.launches, pointnet_kernel.launches) == before
+    batch = make_batch(seed=2, node_counts=(3, 8, 5, 2), bucket=8, num_points=32,
+                       num_obj_classes=20, num_rel_classes=7)
+    counts = []
+    outs = []
+    for step in (make_eval_step(model, branch_3d_only=True, device=dev),
+                 load_serving_artifact(str(tmp_path), device=dev)):
+        before = (segment_max.launches, pointnet_kernel.launches)
+        outs.append(step(model.state_dict(), batch))
+        counts.append((segment_max.launches - before[0], pointnet_kernel.launches - before[1]))
+    assert counts[0] == counts[1] == (2, 1)
+    for key in ("obj_logits_3d", "rel_cls_3d"):
+        torch.testing.assert_close(outs[1][key], outs[0][key], rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="exported for"):
+        load_serving_artifact(str(tmp_path), device="cpu")
+
+
+# one fused eval forward under utils.profiling.trace, in a fresh process:
+# late in a long process torch.profiler loses the first kernel records of a
+# session, so the count is held where it keeps them all
+_PROFILED_FORWARD = """
+import json, sys
+import torch
+from vlsat_tpu_torch.data.synthetic import make_batch
+from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+from vlsat_tpu_torch.train.step import make_eval_step
+from vlsat_tpu_torch.utils import profiling
+model = build_mmgnet(MMGNetConfig(num_obj_classes=20, num_rel_classes=7, fused_pointnet=True),
+                     device="cuda", seed=1)
+batch = make_batch(seed=1, node_counts=(4, 6), num_points=32, num_obj_classes=20,
+                   num_rel_classes=7)
+step = make_eval_step(model, device="cuda")
+step(model.state_dict(), batch)
+before = (segment_max.launches, pointnet_kernel.launches)
+with profiling.trace(sys.argv[1]) as path:
+    step(model.state_dict(), batch)
+    torch.cuda.synchronize()
+print(json.dumps({"path": path, "counted": [segment_max.launches - before[0],
+                                            pointnet_kernel.launches - before[1]]}))
+"""
+
+
+def test_profiling_trace_holds_both_kernels(dev, tmp_path):
+    """One fused eval forward under ``utils.profiling.trace``: the Chrome
+    trace holds one event of each kernel a counted launch."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from vlsat_tpu_torch.utils import profiling
+
+    root = str(Path(__file__).resolve().parents[1])
+    proc = subprocess.run([sys.executable, "-c", _PROFILED_FORWARD, str(tmp_path)],
+                          capture_output=True, text=True, timeout=600, cwd=root,
+                          env=dict(os.environ, PYTHONPATH=root))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    with open(got["path"]) as f:
+        names = [str(e.get("name")) for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    events = [sum(k in n for n in names) for k in ("segment_max_kernel", "pointnet_kernel")]
+    assert events == got["counted"] and min(events) > 0, (events, got["counted"])
+    assert profiling.peak_flops_per_sec(dev) > 0
+
+
+def test_operators_on_card_keep_their_gradients(dev):
+    """Autograd through ``vlsat::segment_max`` on the card equals the plain
+    scatter's on the same primal."""
+    from vlsat_tpu_torch.ops.kernels import segment_max as K
+
+    data, ei, em = _edges(np.random.RandomState(5), 3, 12, 64, dev)
+    g_out = torch.randn(3, 12, 64, device=dev)
+    grads = []
+    for fn in (K.segment_max, K.segment_max_plain):
+        d = data.clone().requires_grad_()
+        (g,) = torch.autograd.grad(fn(d, ei, em, 12, 0), d, g_out)
+        grads.append(g)
+    assert torch.equal(grads[0], grads[1])

@@ -180,20 +180,22 @@ def test_registry_config_equals_jax(rgb, normal, channels):
 
 
 def test_registry_refuses_what_is_not_ported():
-    """The SGGpoint family is the one part of the JAX registry left to
-    port; ``Mmgnet`` with ``USE_SPATIAL=false`` has 504-wide nodes, which
-    the JAX model fails on and the port refuses (the variants that run
-    without the spatial features build: tests/test_torch_port_variants.py)."""
-    for name in ("SGGpoint", "SGGpointBaseline"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            build_model(name, 160, 26, _mcfg())
-    for name in ("MmgnetSingle", "SGFN", "SGPN", "MMteacher", "MmgnetIn21k"):
+    """Every name of the JAX registry builds, each as its JAX class's
+    counterpart; ``Mmgnet`` and ``SGGpoint`` with ``USE_SPATIAL=false``
+    have nodes narrower than their attention width, which the JAX models
+    fail on and the port refuses (the variants that run without the
+    spatial features build: tests/test_torch_port_variants.py,
+    tests/test_torch_port_sggpoint.py)."""
+    for name in ("Mmgnet", "MmgnetSingle", "SGFN", "SGPN", "SGGpoint", "SGGpointBaseline",
+                 "MMteacher", "MmgnetIn21k"):
         model, _ = build_model(name, 160, 26, _mcfg())
         assert type(model).__name__ == type(jax_build_model(name, 160, 26, _mcfg())[0]).__name__
     with pytest.raises(ValueError, match="unknown model"):
         build_model("Nope", 160, 26, _mcfg())
     with pytest.raises(ValueError, match="dim_node"):
         build_model("Mmgnet", 160, 26, _mcfg(USE_SPATIAL=False))
+    with pytest.raises(ValueError, match="not dim 512"):
+        build_model("SGGpoint", 160, 26, _mcfg(USE_SPATIAL=False))
     with pytest.raises(ValueError, match="nn_edge_mode"):
         build_model("Mmgnet", 160, 26, _mcfg(nn_edge_mode="dense"))
 
@@ -432,8 +434,11 @@ def test_runner_refuses_cuda_without_a_card(mini, tmp_path):
         Runner(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--config", str(paths["packed"]), "--mode", "eval"])
-    with pytest.raises(SystemExit, match="item 5"):
-        main(["--config", str(paths["packed"]), "--mode", "trace", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--config", str(paths["packed"]), "--mode", "trace"])
+    path = write_config(tmp_path / "trace.json", paths["packed"], PATH=str(tmp_path / "out"))
+    report = main(["--config", path, "--mode", "trace", "--device", "cpu"])
+    assert report["checked_small"] and report["checked_large"]
 
 
 # --------------------------------------------------------------------- CLI

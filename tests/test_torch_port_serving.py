@@ -117,8 +117,8 @@ def test_bench_server_reports_rates():
 def test_port_imports_without_jax():
     """With jax, flax and vlsat_tpu blocked, every module of the port
     imports (the walk reaches the eval/, train/, utils/, config/, native/,
-    data/, clipsem/ and tools/ modules, the data feed's, the runner's and
-    the CLI's included),
+    data/, clipsem/ and tools/ modules, the data feed's, the runner's, the
+    CLI's, the SGGpoint family's and the export modules included),
     serves a scene, evaluates two synthetic batches, takes two train
     steps with a checkpoint, and trains one epoch through the CLI
     (``main --mode train --device cpu``) on a synthetic split, on the CPU."""
@@ -139,7 +139,8 @@ for name in ("eval.engine", "eval.metrics", "eval.recall", "data.pipeline", "dat
              "data.resident", "native", "main", "train.runner", "models.registry",
              "clipsem.prompts", "clipsem.text_tables", "utils.logging",
              "tools.pack_dataset", "models.variants", "models.mmteacher",
-             "interop.torch_import"):
+             "interop.torch_import", "ops.dgcnn", "ops.gcn", "models.stn",
+             "models.sggpoint", "serving_export", "utils.export", "utils.profiling"):
     assert "vlsat_tpu_torch." + name in walked, name
 from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
 from vlsat_tpu_torch.serving import BatchedServer

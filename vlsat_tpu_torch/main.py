@@ -1,6 +1,6 @@
 """CLI entry (counterpart of ``vlsat_tpu/main.py``):
 
-    python -m vlsat_tpu_torch.main --mode {train,eval,serve} --config cfg.json
+    python -m vlsat_tpu_torch.main --mode {train,eval,trace,serve} --config cfg.json
                                    [--device cuda|cpu]
 
 Loads the config (the defaults merged with the JSON; a JAX experiment JSON
@@ -13,14 +13,17 @@ and dispatches:
   archived and training starts fresh), train, then ``validation(save=True)``;
 * ``eval``: restore the latest (``--loadbest``: the best) checkpoint and
   write the metrics and artifacts under ``PATH/results/NAME/exp``;
+* ``trace``: restore likewise, export the eval forward with
+  ``torch.export`` at two buckets, check both programs against eager
+  execution and write them under ``PATH/NAME/exp/traced``
+  (``utils.export.trace_model``);
 * ``serve``: restore likewise and serve ``POST /predict`` and
   ``GET /healthz`` on ``--host``/``--port`` (0 = an ephemeral port) until
   Ctrl-C.
 
 ``PRNG_IMPL`` and ``COMPILE_CACHE_DIR`` configure JAX and are ignored here.
-``--mode trace`` and ``--data-parallel`` over several cards are not ported
-yet (ROADMAP.md, queue 1 item 5); on one card ``--data-parallel`` changes
-nothing, as in JAX on one device.
+``--data-parallel`` over several cards is not ported yet (ROADMAP.md,
+queue 1 item 5); on one card it changes nothing, as in JAX on one device.
 """
 
 from __future__ import annotations
@@ -50,10 +53,9 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Run one mode; returns the closing validation's metrics (train, eval)."""
+    """Run one mode; returns the closing validation's metrics (train, eval)
+    or the trace report (trace)."""
     args = parse_args(argv)
-    if args.mode == "trace":
-        raise SystemExit("--mode trace is not ported yet (ROADMAP.md, queue 1 item 5)")
     from vlsat_tpu_torch.config import load_config
     from vlsat_tpu_torch.utils.seeding import set_random_seed
 
@@ -85,6 +87,11 @@ def main(argv=None):
                   f"(POST /predict, GET /healthz)", flush=True)
             frontend.serve_forever()
             return None
+        if args.mode == "trace":
+            from vlsat_tpu_torch.utils.export import trace_model
+
+            runner.load(best=args.loadbest)
+            return trace_model(runner, os.path.join(exp_dir, "traced"))
         # resume tolerantly: an unrestorable checkpoint is archived and
         # training starts fresh (reference main.py:45-48)
         runner.load(best=False, allow_fallback=True)

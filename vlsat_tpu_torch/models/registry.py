@@ -1,10 +1,8 @@
 """Model registry: config NAME -> (model, train loss) (counterpart of
 ``vlsat_tpu/models/registry.py``).
 
-Every entry of the JAX registry but the ``SGGpoint`` family is built, with
-the same config fields, loss partials and in21k widths; ``SGGpoint`` and
-``SGGpointBaseline`` raise until their point backbone and graph layer are
-ported (ROADMAP.md, queue 1 item 4).  ``fused_pointnet`` stays off in every
+Every entry of the JAX registry is built, with the same config fields,
+loss partials and in21k widths.  ``fused_pointnet`` stays off in every
 entry, as in JAX.
 """
 
@@ -17,10 +15,11 @@ import numpy as np
 
 from vlsat_tpu_torch.models.mmgnet import MMGNet, MMGNetConfig
 from vlsat_tpu_torch.models.mmteacher import MMTeacher, mmteacher_loss
+from vlsat_tpu_torch.models.sggpoint import (SGGpoint, SGGpointBaseline, SGGpointConfig,
+                                             sggpoint_baseline_loss, sggpoint_loss)
 from vlsat_tpu_torch.models.variants import SGFN, SGPN, MMGNetSingle, SGFNConfig, SGPNConfig
 from vlsat_tpu_torch.train import losses
 
-_NOT_PORTED = ("SGGpoint", "SGGpointBaseline")
 _NN_EDGE_MODES = ("edge", "gather", "onehot")
 
 
@@ -39,10 +38,6 @@ def model_config(name: str, num_obj: int, num_rel: int, mcfg):
     gathers, "onehot" gathers with a one-hot matmul (a TPU layout trick,
     not ported).  The three compute the same function, so the port
     computes all three with its one formulation; any other value raises."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md, queue 1 item 4: the SGGpoint "
-            "family)")
     mode = mcfg.get("nn_edge_mode", "edge")
     if mode not in _NN_EDGE_MODES:
         raise ValueError(f"unknown nn_edge_mode {mode!r}")
@@ -70,6 +65,18 @@ def model_config(name: str, num_obj: int, num_rel: int, mcfg):
         return SGFNConfig(**common, **gnn)
     if name == "SGPN":
         return SGPNConfig(**common, edge_feature_size=mcfg.get("edge_feature_size", 256))
+    if name == "SGGpoint":
+        if mcfg.clip_feat_dim != SGGpointConfig.dim:
+            # JAX takes the width from the batch and fails in the attention
+            raise ValueError(f"SGGpoint's 2D features are clip_feat_dim={mcfg.clip_feat_dim} "
+                             f"wide, not dim {SGGpointConfig.dim}: the attention residuals "
+                             "cannot add them")
+        return SGGpointConfig(num_obj_classes=num_obj, num_rel_classes=num_rel,
+                              num_heads=mcfg.NUM_HEADS, use_spatial=mcfg.USE_SPATIAL,
+                              point_channels=channels)
+    if name == "SGGpointBaseline":
+        return SGGpointConfig(num_obj_classes=num_obj, num_rel_classes=num_rel,
+                              point_channels=channels)
     raise ValueError(f"unknown model NAME {name!r}")
 
 
@@ -84,9 +91,9 @@ def build_model(name: str, num_obj: int, num_rel: int, mcfg,
     """Returns ``(model, loss)``: the model of ``model_config`` on the CPU
     with torch's default initialisation (``train.state.create_train_state(...,
     seed=...)`` draws the seeded weights), and the JAX registry's loss,
-    bound as it binds it.  ``Mmgnet`` with ``USE_SPATIAL=false`` raises
-    (``MMGNet`` refuses node features narrower than ``dim_node``; the JAX
-    model fails on them too)."""
+    bound as it binds it.  ``Mmgnet`` and ``SGGpoint`` with
+    ``USE_SPATIAL=false`` raise (both refuse node features narrower than
+    their attention width; the JAX models fail on them too)."""
     cfg = model_config(name, num_obj, num_rel, mcfg)
     multi = mcfg.multi_rel_outputs
     if name == "Mmgnet":
@@ -103,4 +110,8 @@ def build_model(name: str, num_obj: int, num_rel: int, mcfg,
                                     with_mimic=False)
     if name == "SGFN":
         return SGFN(cfg), partial(losses.sgfn_loss, multi_rel=multi)
-    return SGPN(cfg), losses.sgpn_loss
+    if name == "SGPN":
+        return SGPN(cfg), losses.sgpn_loss
+    if name == "SGGpoint":
+        return SGGpoint(cfg, obj_text_features=obj_text_features), sggpoint_loss
+    return SGGpointBaseline(cfg), sggpoint_baseline_loss

@@ -48,27 +48,6 @@ def _scatter_plain(edge_data: torch.Tensor, edge_index: torch.Tensor,
     return out[:, :num_nodes]
 
 
-class _SegmentMaxKernel(torch.autograd.Function):
-    """Forward through the segment-max wrapper (the CUDA kernel on a CUDA
-    tensor); backward is the plain scatter's gradient at the same primal,
-    as the custom_vjp at vlsat_tpu/ops/graph.py:137-153 does."""
-
-    @staticmethod
-    def forward(ctx, edge_data, edge_index, edge_mask, num_nodes, target):
-        ctx.save_for_backward(edge_data, edge_index, edge_mask)
-        ctx.num_nodes, ctx.target = num_nodes, target
-        return segment_max(edge_data, edge_index, edge_mask, num_nodes, target)
-
-    @staticmethod
-    def backward(ctx, grad):
-        edge_data, edge_index, edge_mask = ctx.saved_tensors
-        with torch.enable_grad():
-            d = edge_data.detach().requires_grad_(True)
-            out = segment_max_plain(d, edge_index, edge_mask, ctx.num_nodes, ctx.target)
-            (g,) = torch.autograd.grad(out, d, grad)
-        return g, None, None, None, None
-
-
 def scatter_edges_to_nodes(edge_data: torch.Tensor, edge_index: torch.Tensor,
                            edge_mask: torch.Tensor, num_nodes: int,
                            aggr: str = "max", target: int = 0,
@@ -79,9 +58,9 @@ def scatter_edges_to_nodes(edge_data: torch.Tensor, edge_index: torch.Tensor,
     (B, N, D).  ``target`` selects the endpoint that receives the message
     (0 = subject).  ``use_kernel`` (callers pass it at eval, as the JAX
     package passes ``use_pallas=deterministic``) routes aggr="max" through
-    the segment-max wrapper: the CUDA kernel on a CUDA tensor, its plain twin
-    on a CPU tensor.
+    the ``vlsat::segment_max`` operator: the CUDA kernel on a CUDA tensor,
+    its plain twin on a CPU tensor, the plain scatter's gradient on both.
     """
     if use_kernel and aggr == "max":
-        return _SegmentMaxKernel.apply(edge_data, edge_index, edge_mask, num_nodes, target)
+        return segment_max(edge_data, edge_index, edge_mask, num_nodes, target)
     return _scatter_plain(edge_data, edge_index, edge_mask, num_nodes, aggr, target)

@@ -5,10 +5,12 @@ Counterpart of ``vlsat_tpu/ops/pallas/pointnet_kernel.py``:
 ``pointnet_encode_fused_v2`` (Pallas call at :150).  Both run the one kernel
 of ``vlsat_tpu_torch/csrc/pointnet.cu``; v2 is its point-chunked
 configuration.  The plain twin is ``vlsat_tpu_torch.ops.pointnet``.
-A CPU tensor takes the twin, a CUDA tensor the kernel; there is no fallback
-between them.  The kernel route is differentiable: its backward is the
-twin's gradient at the same primal, as the JAX package's interpret-mode
-call is differentiable.
+Both wrappers call the PyTorch operator ``vlsat::pointnet_encode``: a CPU
+tensor takes the twin, a CUDA tensor the kernel (there is no fallback
+between them), a fake tensor gets the output shape (``torch.export`` traces
+through it without launching).  The operator is differentiable: its
+backward is the twin's gradient at the same primal, as the JAX package's
+interpret-mode call is differentiable.
 """
 
 from __future__ import annotations
@@ -88,44 +90,59 @@ def _launch(pts: torch.Tensor, weights: Sequence[torch.Tensor],
     return out.reshape(*lead, o)
 
 
-class _PointNetKernel(torch.autograd.Function):
-    """Forward through the CUDA kernel; backward is the plain chain's
-    gradient at the same primal, re-derived from the saved inputs (as
-    ``_SegmentMaxKernel`` in ``ops/graph.py`` and the custom_vjp at
-    vlsat_tpu/ops/graph.py:137-153 do).  The kernel's own output carries no
-    autograd history, so without this no gradient would reach the encoder."""
+@torch.library.custom_op("vlsat::pointnet_encode", mutates_args=(), device_types="cpu")
+def _pointnet_op(pts: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor,
+                 b1: torch.Tensor, b2: torch.Tensor, b3: torch.Tensor,
+                 p_chunk: int) -> torch.Tensor:
+    """``p_chunk`` 0 is the unchunked kernel (one slab of all P points)."""
+    return pointnet_encode_plain(pts, (w1, w2, w3), (b1, b2, b3))
 
-    @staticmethod
-    def forward(ctx, pts, w1, w2, w3, b1, b2, b3, p_chunk):
-        ctx.save_for_backward(pts, w1, w2, w3, b1, b2, b3)
-        return _launch(pts, (w1, w2, w3), (b1, b2, b3), p_chunk)
 
-    @staticmethod
-    def backward(ctx, grad):
-        need = [i for i, n in enumerate(ctx.needs_input_grad[:7]) if n]
-        xs = [t.detach().requires_grad_(i in need) for i, t in enumerate(ctx.saved_tensors)]
-        with torch.enable_grad():
-            out = pointnet_encode_plain(xs[0], xs[1:4], xs[4:7])
-            got = torch.autograd.grad(out, [xs[i] for i in need], grad)
-        grads = [None] * 8
-        for i, g in zip(need, got):
-            grads[i] = g
-        return tuple(grads)
+@_pointnet_op.register_kernel("cuda")
+def _(pts, w1, w2, w3, b1, b2, b3, p_chunk):
+    global launches_v2
+    out = _launch(pts, (w1, w2, w3), (b1, b2, b3), p_chunk or pts.shape[-2])
+    launches_v2 += int(p_chunk > 0)
+    return out
+
+
+@_pointnet_op.register_fake
+def _(pts, w1, w2, w3, b1, b2, b3, p_chunk):
+    return pts.new_empty(*pts.shape[:-2], w3.shape[1])
+
+
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:7])
+
+
+def _backward(ctx, grad):
+    """The plain chain's gradient at the same primal, re-derived from the
+    saved inputs for the inputs that need one."""
+    need = [i for i, n in enumerate(ctx.needs_input_grad[:7]) if n]
+    xs = [t.detach().requires_grad_(i in need) for i, t in enumerate(ctx.saved_tensors)]
+    with torch.enable_grad():
+        out = pointnet_encode_plain(xs[0], xs[1:4], xs[4:7])
+        got = torch.autograd.grad(out, [xs[i] for i in need], grad)
+    grads = [None] * 8
+    for i, g in zip(need, got):
+        grads[i] = g
+    return tuple(grads)
+
+
+_pointnet_op.register_autograd(_backward, setup_context=_setup)
 
 
 def _fused(pts, weights, biases, p_chunk: int) -> torch.Tensor:
     if len(weights) != 3 or len(biases) != 3:
         raise ValueError("the fused PointNet kernel takes exactly three layers")
-    return _PointNetKernel.apply(pts, *weights, *biases, p_chunk)
+    return _pointnet_op(pts, *weights, *biases, p_chunk)
 
 
 def pointnet_encode_fused(pts: torch.Tensor, weights: Sequence[torch.Tensor],
                           biases: Sequence[torch.Tensor]) -> torch.Tensor:
     """pts (..., P, C) -> (..., out), weights (in, out).  The whole point
     set of an instance is one slab (the unchunked kernel)."""
-    if not pts.is_cuda:
-        return pointnet_encode_plain(pts, weights, biases)
-    return _fused(pts, weights, biases, pts.shape[-2])
+    return _fused(pts, weights, biases, 0)
 
 
 def pointnet_encode_fused_v2(pts: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -134,11 +151,6 @@ def pointnet_encode_fused_v2(pts: torch.Tensor, weights: Sequence[torch.Tensor],
     """Point-chunked configuration: layers run on ``p_chunk``-point slabs
     folded into a running max.  Requires P % p_chunk == 0, as the Pallas
     v2 kernel does."""
-    global launches_v2
-    if pts.shape[-2] % p_chunk:
+    if p_chunk < 1 or pts.shape[-2] % p_chunk:
         raise ValueError(f"P={pts.shape[-2]} is not a multiple of p_chunk={p_chunk}")
-    if not pts.is_cuda:
-        return pointnet_encode_plain(pts, weights, biases)
-    out = _fused(pts, weights, biases, p_chunk)
-    launches_v2 += 1
-    return out
+    return _fused(pts, weights, biases, p_chunk)

@@ -3,8 +3,12 @@
 Counterpart of ``vlsat_tpu/ops/pallas/segment_max.py`` (``segment_max_pallas``,
 Pallas call at :95).  The kernel is ``vlsat_tpu_torch/csrc/segment_max.cu``;
 ``segment_max_plain`` computes the same function with one
-``scatter_reduce``.  ``segment_max`` takes the twin for a CPU tensor and
-launches the kernel for a CUDA tensor; there is no fallback between them.
+``scatter_reduce``.  ``segment_max`` is the PyTorch operator
+``vlsat::segment_max``: the twin for a CPU tensor, the kernel for a CUDA
+tensor (there is no fallback between them), output shapes for a fake
+tensor (``torch.export`` traces through it without launching), and the
+plain scatter's gradient at the same primal as its backward, as the
+custom_vjp at vlsat_tpu/ops/graph.py:137-153 gives.
 """
 
 from __future__ import annotations
@@ -92,10 +96,37 @@ def segment_max_cuda(edge_data: torch.Tensor, edge_index: torch.Tensor,
     return out
 
 
-def segment_max(edge_data: torch.Tensor, edge_index: torch.Tensor,
-                edge_mask: torch.Tensor, num_nodes: int,
-                target: int = 0) -> torch.Tensor:
-    """The plain twin for a CPU tensor, the CUDA kernel for a CUDA tensor."""
-    if edge_data.is_cuda:
-        return segment_max_cuda(edge_data, edge_index, edge_mask, num_nodes, target)
-    return segment_max_plain(edge_data, edge_index, edge_mask, num_nodes, target)
+@torch.library.custom_op("vlsat::segment_max", mutates_args=(), device_types="cpu")
+def segment_max(edge_data: torch.Tensor, edge_index: torch.Tensor, edge_mask: torch.Tensor,
+                num_nodes: int, target: int = 0) -> torch.Tensor:
+    """``vlsat::segment_max``: the plain twin for a CPU tensor (contiguous,
+    as the kernel's and the fake's outputs are), the CUDA kernel for a CUDA
+    tensor; differentiable."""
+    return segment_max_plain(edge_data, edge_index, edge_mask, num_nodes, target).contiguous()
+
+
+@segment_max.register_kernel("cuda")
+def _(edge_data, edge_index, edge_mask, num_nodes, target=0):
+    return segment_max_cuda(edge_data, edge_index, edge_mask, num_nodes, target)
+
+
+@segment_max.register_fake
+def _(edge_data, edge_index, edge_mask, num_nodes, target=0):
+    return edge_data.new_empty(edge_data.shape[0], num_nodes, edge_data.shape[-1])
+
+
+def _setup(ctx, inputs, output):
+    edge_data, edge_index, edge_mask, ctx.num_nodes, ctx.target = inputs
+    ctx.save_for_backward(edge_data, edge_index, edge_mask)
+
+
+def _backward(ctx, grad):
+    edge_data, edge_index, edge_mask = ctx.saved_tensors
+    with torch.enable_grad():
+        d = edge_data.detach().requires_grad_(True)
+        out = segment_max_plain(d, edge_index, edge_mask, ctx.num_nodes, ctx.target)
+        (g,) = torch.autograd.grad(out, d, grad)
+    return g, None, None, None, None
+
+
+segment_max.register_autograd(_backward, setup_context=_setup)

@@ -37,7 +37,10 @@ from vlsat_tpu_torch.train.step import make_eval_step
 class BatchedServer:
     """Micro-batching inference server over ``model``'s eval step
     (``train.step.make_eval_step``) on ``device``: the card unless the
-    caller passes ``device="cpu"``.
+    caller passes ``device="cpu"``; or over ``eval_step``, a step of that
+    signature such as a loaded serving artifact
+    (``serving_export.load_serving_artifact``), on its ``device``, with no
+    model.
 
     ``submit`` is thread-safe and returns a Future resolving to
     ``{"obj_logits": (n, C), "rel_cls": (e, R), "edge_index": (e, 2)}``
@@ -48,18 +51,23 @@ class BatchedServer:
     the branch whose outputs ("3d" or "2d") the futures carry.
     """
 
-    def __init__(self, model, state: Optional[Mapping] = None, device=None,
+    def __init__(self, model=None, state: Optional[Mapping] = None, device=None,
                  max_batch: int = 32, deadline_ms: float = 5.0,
                  buckets: Sequence[int] = DEFAULT_NODE_BUCKETS,
                  feat_dim: int = 512, num_rel_classes: int = 26,
                  branch_3d_only: bool = True, branch_key: str = "3d",
-                 pad_to_max: bool = True):
-        dev = resolve_device(device)
+                 pad_to_max: bool = True, eval_step=None):
+        if (model is None) == (eval_step is None):
+            raise ValueError("BatchedServer takes a model or an eval_step, not both")
+        if eval_step is None:
+            dev = resolve_device(device)
+            self._eval = make_eval_step(model, branch_3d_only=branch_3d_only, device=dev)
+            state = model.state_dict() if state is None else state
+            self._state = {k: v.to(dev) for k, v in state.items()}
+        else:
+            dev, self._eval, self._state = eval_step.device, eval_step, None
         self._pin = dev.type == "cuda"
-        self._eval = make_eval_step(model, branch_3d_only=branch_3d_only, device=dev)
         self.branch_key = branch_key
-        state = model.state_dict() if state is None else state
-        self._state = {k: v.to(dev) for k, v in state.items()}
         self.max_batch = max_batch
         self.deadline_s = deadline_ms / 1e3
         self.buckets = tuple(buckets)
