@@ -122,14 +122,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
     the same evaluation profiled in this process (its kernel records
     against its launch calls, recorded); the phase's launches are read
     there, and only then is the host time of a kernel call through its
-    operator and through its ctypes wrapper taken.  Phases 10-13's work
-    directories are removed at its end.
+    operator and through its ctypes wrapper taken;
+14. data parallelism (``vlsat_tpu_torch.parallel``) on the one card: rank
+    processes from ``parallel.spawn_ranks`` as a one-rank NCCL group and as
+    two gloo ranks sharing the card, and the same work in this process with
+    no group as the reference, at full width (``fused_pointnet=True``):
+    train steps at B=8 on 3DSSG-like batches (buckets 8/12) with text
+    targets, DYNAMIC weights and dropout on -- one SGD step (loss rtol
+    1e-5, every leaf within max(5e-5, 1e-2 x its update)), three AdamW
+    steps (losses rtol 1e-5), no kernel launch, equal weights on every
+    rank; evaluation at B=32 over phase 8's split, streamed through
+    ``shard_eval_batches`` (the ragged tail padded) and resident through
+    ``ResidentShardedEval`` (K = 4), its rank lists against the no-group
+    run's with every mismatch counted (at most 0.1 %), segment-max
+    launched 4 times and the fused PointNet once per batch in every rank
+    (each rank counts its own, summed); trained and evaluated scenes/s of
+    no group, dp=1 and dp=2, recorded as the collectives' overhead on one
+    card, not as scaling; then ``python -m vlsat_tpu_torch.main --mode
+    train --data-parallel`` for one epoch on phase 11's pack and JSON with
+    two ranks under ``torch.distributed.run`` and ``--mode eval`` (its
+    metrics equal to its closing validation's, one checkpoint directory,
+    one ``result.txt``, one epoch row and one metric log, its first logged
+    losses within 1e-5 relative of a one-process run's).  Phases 10-14's
+    work directories are removed at its end.
 
 The last lines are a ``variants`` line (per model: evaluated
 scenes/s, wall ms per batch, trained scenes/s, step wall ms, peak memory,
 segment-max launches), an ``export`` line (export seconds a bucket, load
 seconds, artifact and ``.pt2`` bytes, scenes/s of both servers, dispatch
-microseconds), a JSON ``kernels`` line (with each kernel's launches in
+microseconds), a ``data_parallel`` line (phase 14's checks, throughput
+and CLI run), a JSON ``kernels`` line (with each kernel's launches in
 every phase), the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -417,10 +439,11 @@ def union_points(rng, sc: dict, num_points: int) -> np.ndarray:
     return out
 
 
-def labelled_splits(seed: int, batch: int = BATCH,
-                    large=(("b48", 33, 48, BATCH), ("b64", 49, 64, BATCH)),
-                    with_text: bool = False, feat_dim: int = 512,
-                    num_points_union: int = 0) -> dict:
+LARGE = (("b48", 33, 48, BATCH), ("b64", 49, 64, BATCH))  # the evaluation phase's
+
+
+def labelled_splits(seed: int, batch: int = BATCH, large=LARGE, with_text: bool = False,
+                    feat_dim: int = 512, num_points_union: int = 0) -> dict:
     """Host batches of ``batch`` scenes: "val" has the node and relation
     counts of 256 draws from the 3DSSG validation split (5-9 nodes), grouped
     by node bucket; each (name, lo, hi, count) of ``large`` holds ``count``
@@ -429,9 +452,33 @@ def labelled_splits(seed: int, batch: int = BATCH,
     features; ``num_points_union`` > 0 adds SGPN's union clouds of that many
     points (from a stream of their own, so the rest of a split does not
     change)."""
+    from vlsat_tpu_torch.scene import collate, pad_scene, pick_bucket
+
+    splits = {}
+    for name, scenes in split_scenes(seed, large, with_text, feat_dim,
+                                     num_points_union).items():
+        by_bucket: dict = {}
+        for sc in scenes:
+            by_bucket.setdefault(pick_bucket(sc["obj_points"].shape[0]), []).append(sc)
+        batches = []
+        for bucket in sorted(by_bucket):
+            group = by_bucket[bucket]
+            for lo in range(0, len(group), batch):
+                batches.append(collate([pad_scene(
+                    sc["obj_points"], sc["descriptor"], sc["obj_2d_feats"], sc["gt_class"],
+                    sc["edge_index"], sc["gt_rels"], n_max=bucket,
+                    rel_text_feat=sc.get("rel_text_feat"), rel_points=sc.get("rel_points"))
+                    for sc in group[lo:lo + batch]], with_text=with_text))
+        splits[name] = batches
+    return splits
+
+
+def split_scenes(seed: int, large=LARGE, with_text: bool = False, feat_dim: int = 512,
+                 num_points_union: int = 0) -> dict:
+    """The scenes of ``labelled_splits`` (same arguments), unpadded."""
     from vlsat_tpu_torch.data.synthetic import (edge_text_targets, make_scene,
                                                 validation_scene_stats)
-    from vlsat_tpu_torch.scene import collate, edge_count, pad_scene, pick_bucket
+    from vlsat_tpu_torch.scene import edge_count
 
     rng = np.random.RandomState(seed)
     urng = np.random.RandomState(seed + 1000)
@@ -451,19 +498,7 @@ def labelled_splits(seed: int, batch: int = BATCH,
             if num_points_union:
                 sc["rel_points"] = union_points(urng, sc, num_points_union)
             scenes.append(sc)
-        by_bucket: dict = {}
-        for sc in scenes:
-            by_bucket.setdefault(pick_bucket(sc["obj_points"].shape[0]), []).append(sc)
-        batches = []
-        for bucket in sorted(by_bucket):
-            group = by_bucket[bucket]
-            for lo in range(0, len(group), batch):
-                batches.append(collate([pad_scene(
-                    sc["obj_points"], sc["descriptor"], sc["obj_2d_feats"], sc["gt_class"],
-                    sc["edge_index"], sc["gt_rels"], n_max=bucket,
-                    rel_text_feat=sc.get("rel_text_feat"), rel_points=sc.get("rel_points"))
-                    for sc in group[lo:lo + batch]], with_text=with_text))
-        splits[name] = batches
+        splits[name] = scenes
     return splits
 
 
@@ -2141,7 +2176,324 @@ def export_phase(model, dev, scenes) -> dict:
         f"{here['launches_counted']} ({here['kernel_records']} kernel records for "
         f"{here['launch_calls']} launch calls); "
         f"operator dispatch {out['dispatch_us']}")
-    shutil.rmtree(EXPORT_WORK, ignore_errors=True)
+    shutil.rmtree(EXPORT_WORK, ignore_errors=True)  # phase 14 still reads RUN_WORK
+    return out
+
+
+DP_WORK = WORK.parent / "data_parallel"
+DP_TIMED_STEPS = 12        # timed train steps of each configuration
+DP_TIMEOUT_S = 300         # the groups' collective timeout
+
+
+class SGD:
+    """Plain SGD in the spec interface of ``train.optim.make_optimizer``'s
+    result (the sharding gate's optimizer, tests/test_production_shape_sharding.py)."""
+
+    def __init__(self, lr: float):
+        self.lr = lr
+
+    def init(self, model):
+        opt = torch.optim.SGD(model.parameters(), lr=self.lr)
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda t: 1.0)
+
+    update = staticmethod(lambda optimizer, scheduler: (optimizer.step(), scheduler.step()))
+
+
+class ListScenes:
+    """``data.packed.pack_scenes``'s view of in-memory scene dicts."""
+
+    multi_rel = True
+
+    def __init__(self, scenes: list, feat_dim: int = 512, num_points: int = 128):
+        from types import SimpleNamespace
+
+        self._scenes = scenes
+        self.feat_dim, self.num_points = feat_dim, num_points
+        self.index = SimpleNamespace(scenes=[SimpleNamespace(scan_id=f"scene{i:04d}")
+                                             for i in range(len(scenes))])
+        self.w_cls_obj, self.w_cls_rel = np.ones(160), np.ones(26)
+
+    def __len__(self) -> int:
+        return len(self._scenes)
+
+    def prepare(self, i: int, rng) -> dict:
+        return self._scenes[i]
+
+
+def dp_work(inp: dict, world, dev) -> dict:
+    """Phase 14's work on ``dev``, in one rank of ``world`` or, with
+    ``world=None``, without a group: one SGD step, three AdamW steps and
+    ``DP_TIMED_STEPS`` timed ones at B=8 (dropout on), then the sharded
+    streaming and resident evaluations at B=32 (rank lists under
+    ``inp["work"]``), each timed pass with the launch counters at 0 just
+    before it."""
+    from vlsat_tpu_torch import parallel
+    from vlsat_tpu_torch.data.packed import PackedScenes
+    from vlsat_tpu_torch.data.resident import (ResidentGroupedEval, ResidentScenes,
+                                               ResidentShardedEval)
+    from vlsat_tpu_torch.eval.engine import evaluate
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.train.optim import make_optimizer
+    from vlsat_tpu_torch.train.state import create_train_state
+    from vlsat_tpu_torch.train.step import make_eval_step, make_train_step
+
+    cfg = MMGNetConfig(fused_pointnet=True)
+    tag = "none" if world is None else f"dp{world.size}"
+    sync = torch.cuda.synchronize if torch.device(dev).type == "cuda" else (lambda: None)
+    tb = inp["train"]
+    out: dict = {"tag": tag, "launches": {}}
+    reset_launches()
+    model = build_mmgnet(cfg, device=dev, seed=SEED + 14)
+    sgd = SGD(1e-2)
+    state = create_train_state(model, sgd)
+    _, aux = make_train_step(model, sgd, device=dev, world=world)(state, tb[0], 0)
+    out["sgd_loss"] = aux["loss"].item()
+    out["sgd_state"] = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    model = build_mmgnet(cfg, device=dev, seed=SEED + 14)
+    spec = make_optimizer(lr=1e-4, max_iteration=1000)
+    state = create_train_state(model, spec)
+    step = make_train_step(model, spec, device=dev, world=world)
+    out["adamw_losses"] = [step(state, b, i)[1]["loss"].item() for i, b in enumerate(tb[1:4])]
+    timed = tb[4:4 + DP_TIMED_STEPS]
+    sync()
+    t0 = time.monotonic()
+    for i, b in enumerate(timed):
+        _, aux = step(state, b, 10 + i)
+    aux["loss"].item()
+    wall = time.monotonic() - t0
+    out["train"] = {"steps": len(timed), "step_wall_ms": wall * 1e3 / len(timed),
+                    "scenes_per_sec": sum(b.num_scenes for b in timed) / wall}
+    out["launches"]["train"] = read_launches()
+    out["param_checksum"] = float(sum(p.detach().double().sum().item()
+                                      for p in model.parameters()))
+    del model, state, step
+
+    model = build_mmgnet(cfg, device=dev, seed=SEED + 14)
+    estep = make_eval_step(model, device=dev)
+    sd = model.state_dict()
+    kw = dict(num_rel_classes=26, verbose=False, scene_recall=True,
+              train_triplet_vocab=inp["vocab"])
+    packed = PackedScenes(inp["pack"])
+    loaders = {
+        "stream": lambda: (inp["eval"] if world is None
+                           else parallel.shard_eval_batches(inp["eval"], world)),
+        "resident": lambda: (
+            ResidentGroupedEval(ResidentScenes(packed, device=dev), BATCH, group=EVAL_GROUP)
+            if world is None else ResidentShardedEval(packed, world, BATCH, group=EVAL_GROUP)),
+    }
+    for name, make in loaders.items():
+        loader = make()
+        evaluate(estep, sd, loader, **kw)  # warm-up
+        sync()
+        reset_launches()
+        t0 = time.monotonic()
+        metrics = evaluate(estep, sd, loader, save_dir=str(Path(inp["work"]) / f"{tag}_{name}"),
+                           **kw)
+        sync()
+        wall = time.monotonic() - t0
+        out["launches"][name] = read_launches()
+        out[f"eval_{name}"] = {"wall_s": wall, "scenes_per_sec": inp["eval_scenes"] / wall,
+                               "metrics": metrics}
+    return out
+
+
+def dp_rank(path: str) -> dict:
+    """``dp_work`` in one rank of the group ``parallel.spawn_ranks`` made;
+    returns rank 0's result with every rank's launches and checksum."""
+    import torch.distributed as dist
+
+    from vlsat_tpu_torch import parallel
+
+    w = parallel.world()
+    res = dp_work(torch.load(path, weights_only=False), w, w.device)
+    ranks = [None] * w.size
+    dist.all_gather_object(ranks, {"launches": res["launches"],
+                                   "param_checksum": res["param_checksum"],
+                                   "adamw_losses": res["adamw_losses"]}, group=w.host_group)
+    res["ranks"] = ranks
+    res["world"] = {"size": w.size, "backend": w.backend, "device": str(w.device)}
+    return res
+
+
+def run_group(cmd: list, timeout: float, cwd) -> str:
+    """Run ``cmd`` in a session of its own (a launcher and its workers);
+    on a timeout or a non-zero exit kill the whole session and fail."""
+    import signal
+
+    proc = subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"data parallel: {' '.join(cmd[:6])} ... did not finish within {timeout} s")
+    if proc.returncode:
+        fail(f"data parallel: {' '.join(cmd[:6])} ... exited {proc.returncode}: {text[-3000:]}")
+    return text
+
+
+def dp_cli(here: Path) -> dict:
+    """``main --mode train --data-parallel`` for one epoch on phase 11's
+    pack and JSON with two ranks under torchrun (gloo on the one card), then
+    ``--mode eval``; a one-process run of the same JSON as the reference."""
+    from vlsat_tpu_torch.main import main as cli
+
+    base = json.loads((RUN_WORK / "cfg.json").read_text())
+    # the streamed per-step path: the resident split is single-rank, and a
+    # streamed K-stack of the 8/12-node pack would mix buckets; every step's
+    # loss logged (AdamW turns fp32 reassociation noise into lr-sized steps,
+    # so the runs drift apart after the first few)
+    base.update(MAX_EPOCHES=1, TRAIN_RESIDENT=False, TRAIN_MICROSTEPS=1, LOG_INTERVAL=1)
+    paths = {}
+    for name in ("one", "dp"):
+        paths[name] = DP_WORK / f"cli_{name}.json"
+        paths[name].write_text(json.dumps({**base, "PATH": str(DP_WORK / f"cli_{name}")}))
+    out: dict = {}
+    t0 = time.monotonic()
+    cli(["--config", str(paths["one"]), "--mode", "train"])
+    out["one_process_train_s"] = time.monotonic() - t0
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "2", "-m", "vlsat_tpu_torch.main", "--config", str(paths["dp"]), "--data-parallel"]
+    t0 = time.monotonic()
+    run_group(run + ["--mode", "train"], 900, here)
+    out["dp_train_s"] = time.monotonic() - t0
+    dp = DP_WORK / "cli_dp"
+    result = dp / "results" / "Mmgnet" / "default" / "result.txt"
+    closing = result.read_text()
+    t0 = time.monotonic()
+    run_group(run + ["--mode", "eval"], 600, here)
+    out["dp_eval_s"] = time.monotonic() - t0
+    if result.read_text() != closing:
+        fail("data parallel, CLI: --mode eval metrics differ from the closing validation's")
+    counts = {n: sum(n in d or n in f for _, d, f in os.walk(dp))
+              for n in ("checkpoints", "result.txt", "epoch_stats.jsonl", "events.jsonl")}
+    if any(v != 1 for v in counts.values()):
+        fail(f"data parallel, CLI: want one of each written by rank 0, found {counts}")
+    losses = {}
+    for name in ("one", "dp"):
+        with open(DP_WORK / f"cli_{name}" / "logs" / "Mmgnet" / "default" / "events.jsonl") as f:
+            losses[name] = [r["train/loss"] for r in map(json.loads, f) if "train/loss" in r]
+        with open(DP_WORK / f"cli_{name}" / "Mmgnet" / "default" / "epoch_stats.jsonl") as f:
+            out[f"{name}_epoch"] = json.loads(f.readline())
+    n = min(3, len(losses["one"]))
+    if n == 0 or len(losses["dp"]) != len(losses["one"]) or not np.allclose(
+            losses["dp"][:n], losses["one"][:n], rtol=1e-5, atol=0):
+        fail(f"data parallel, CLI: first logged losses {losses['dp'][:n]} against one "
+             f"process's {losses['one'][:n]} (rtol 1e-5)")
+    out["first_logged_losses"] = {k: v[:n] for k, v in losses.items()}
+    rel = np.abs(np.subtract(losses["dp"], losses["one"])) / np.abs(losses["one"])
+    out["loss_rel_diff_by_step"] = {"steps": len(rel), "max_first_10": float(rel[:10].max()),
+                                    "max": float(rel.max()), "median": float(np.median(rel))}
+    out["files"] = counts
+    out["metrics"] = len([l for l in closing.splitlines() if l.startswith("Eval: ")])
+    return out
+
+
+def data_parallel(dev: torch.device) -> dict:
+    """Phase 14: data parallelism on the one card."""
+    from vlsat_tpu_torch import parallel
+    from vlsat_tpu_torch.data.packed import PackedScenes, pack_scenes
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+
+    here = Path(__file__).resolve().parent
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    DP_WORK.mkdir(parents=True)
+    t0 = time.monotonic()
+    val = split_scenes(SEED + 2)["val"]  # phase 8's split
+    pack_scenes(ListScenes(val), str(DP_WORK / "pack"), seed=SEED)
+    evb = labelled_splits(SEED + 2)["val"]
+    tb = labelled_splits(SEED + 3, batch=TRAIN_BATCH, large=(), with_text=True)["val"]
+    tb = [b for b in tb if b.num_scenes == TRAIN_BATCH][:4 + DP_TIMED_STEPS]
+    inp = {"train": tb, "eval": evb, "eval_scenes": sum(b.num_scenes for b in evb),
+           "vocab": triplet_vocab(evb), "pack": str(DP_WORK / "pack"), "work": str(DP_WORK)}
+    torch.save(inp, DP_WORK / "inputs.pt")
+    rows = eval_rows(PackedScenes(str(DP_WORK / "pack")), BATCH, EVAL_GROUP)
+    log(f"data parallel: {len(evb)} eval batches of phase 8's split (B={BATCH}, "
+        f"{inp['eval_scenes']} scenes, {rows} grouped resident rows), {len(tb)} train batches "
+        f"(B={TRAIN_BATCH}), pack written, in {time.monotonic() - t0:.1f} s")
+
+    runs = {"none": dp_work(inp, None, dev)}
+    for n in (1, 2):
+        t0 = time.monotonic()
+        runs[f"dp{n}"] = parallel.spawn_ranks(dp_rank, n, str(DP_WORK / "inputs.pt"),
+                                              device=dev.type, timeout_s=DP_TIMEOUT_S)
+        runs[f"dp{n}"]["spawn_s"] = time.monotonic() - t0
+        w = runs[f"dp{n}"]["world"]
+        # NCCL needs a card a rank; two ranks on one card take gloo
+        want = {"size": n, "backend": "nccl" if n == 1 and dev.type == "cuda" else "gloo",
+                "device": str(torch.device(dev.type, 0)) if dev.type == "cuda" else "cpu"}
+        if w != want:
+            fail(f"data parallel: dp={n} formed {w}; want {want}")
+    ref = runs["none"]
+    initial = {k: v.detach().cpu().numpy()
+               for k, v in build_mmgnet(MMGNetConfig(fused_pointnet=True), device="cpu",
+                                        seed=SEED + 14).state_dict().items()}
+    checks: dict = {}
+    for tag in ("dp1", "dp2"):
+        r = runs[tag]
+        if not np.isclose(r["sgd_loss"], ref["sgd_loss"], rtol=1e-5, atol=0):
+            fail(f"data parallel, {tag}: SGD step loss {r['sgd_loss']} against {ref['sgd_loss']}")
+        if not np.allclose(r["adamw_losses"], ref["adamw_losses"], rtol=1e-5, atol=0):
+            fail(f"data parallel, {tag}: AdamW losses {r['adamw_losses']} against "
+                 f"{ref['adamw_losses']} (rtol 1e-5)")
+        worst = 0.0
+        for k, want in ref["sgd_state"].items():
+            diff = float(np.abs(r["sgd_state"][k] - want).max()) if want.size else 0.0
+            upd = float(np.abs(want - initial[k]).max()) if want.size else 0.0
+            if diff > max(5e-5, 1e-2 * upd):
+                fail(f"data parallel, {tag}: leaf {k} off by {diff} after one SGD step "
+                     f"(update {upd}; gate max(5e-5, 1e-2 x update))")
+            worst = max(worst, diff / max(5e-5, 1e-2 * upd))
+        per_rank = r["ranks"]
+        if len({p["param_checksum"] for p in per_rank}) != 1:
+            fail(f"data parallel, {tag}: the ranks' weights differ: {per_rank}")
+        for i, p in enumerate(per_rank):
+            lt = p["launches"]["train"]
+            if any(lt.values()):
+                fail(f"data parallel, {tag} rank {i}: train steps launched {lt}")
+            for name, batches in (("stream", len(evb)), ("resident", rows)):
+                got = p["launches"][name]
+                if got["segment_max"] != 4 * batches or got["pointnet_fused"] != batches:
+                    fail(f"data parallel, {tag} rank {i}, {name} evaluation: launches {got} "
+                         f"for {batches} batches (want 4 segment-max and 1 PointNet each)")
+        mism = {}
+        for name in ("stream", "resident"):
+            got = rank_lists(DP_WORK / f"{tag}_{name}")
+            want = rank_lists(DP_WORK / f"none_{name}")
+            m = {k: int((got[k] != v).sum()) if got[k].shape == v.shape else -1
+                 for k, v in want.items()}
+            total = sum(v.size for v in want.values())
+            if min(m.values()) < 0 or sum(m.values()) > 1e-3 * total:
+                fail(f"data parallel, {tag} {name}: rank-list mismatches {m} of {total}")
+            mism[name] = {"mismatches": m, "ranks": total}
+        checks[tag] = {"sgd_loss": r["sgd_loss"], "adamw_losses": r["adamw_losses"],
+                       "sgd_worst_gate_fraction": worst, "rank_lists": mism,
+                       "launches_per_rank": [p["launches"] for p in per_rank]}
+        log(f"data parallel, {tag} ({r['world']['backend']}): SGD loss {r['sgd_loss']:.9g} "
+            f"against {ref['sgd_loss']:.9g}, AdamW losses {r['adamw_losses']} against "
+            f"{ref['adamw_losses']}; every leaf at the SGD gate (worst {worst:.3f} of it); "
+            f"rank-list mismatches {mism}; launches per rank {checks[tag]['launches_per_rank']}")
+    out = {"checks": checks, "ref_sgd_loss": ref["sgd_loss"],
+           "ref_adamw_losses": ref["adamw_losses"],
+           "throughput_collective_overhead_on_one_card": {
+               tag: {"trained_scenes_per_sec": r["train"]["scenes_per_sec"],
+                     "step_wall_ms": r["train"]["step_wall_ms"],
+                     "evaluated_scenes_per_sec_stream": r["eval_stream"]["scenes_per_sec"],
+                     "evaluated_scenes_per_sec_resident": r["eval_resident"]["scenes_per_sec"],
+                     "spawn_s": r.get("spawn_s")}
+               for tag, r in runs.items()}}
+    log("data parallel, collective overhead on one card (not scaling): " + json.dumps(
+        out["throughput_collective_overhead_on_one_card"]))
+    out["cli"] = dp_cli(here)
+    log(f"data parallel, CLI: torchrun 2 ranks, train {out['cli']['dp_train_s']:.1f} s, eval "
+        f"{out['cli']['dp_eval_s']:.1f} s (one process: {out['cli']['one_process_train_s']:.1f} "
+        f"s); closing validation equal to --mode eval on {out['cli']['metrics']} metrics; "
+        f"first losses {out['cli']['first_logged_losses']}; files {out['cli']['files']}")
+    out["launches"] = {k: sum(p["launches"][name][k] for tag in ("dp1", "dp2")
+                              for p in runs[tag]["ranks"] for name in ("stream", "resident"))
+                       for k in ("segment_max", "pointnet_fused", "pointnet_fused_v2")}
+    shutil.rmtree(DP_WORK, ignore_errors=True)
     shutil.rmtree(RUN_WORK, ignore_errors=True)
     shutil.rmtree(WORK, ignore_errors=True)
     return out
@@ -2270,6 +2622,11 @@ def main() -> None:
     for k in kernels:
         k["launches_export"] = exp["launches"].get(k["name"], 0)
     log(json.dumps({"export": exp}))
+    # 14. data parallelism
+    dp = data_parallel(dev)
+    for k in kernels:
+        k["launches_data_parallel"] = dp["launches"].get(k["name"], 0)
+    log(json.dumps({"data_parallel": dp}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

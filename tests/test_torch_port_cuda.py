@@ -700,3 +700,39 @@ def test_operators_on_card_keep_their_gradients(dev):
         (g,) = torch.autograd.grad(fn(d, ei, em, 12, 0), d, g_out)
         grads.append(g)
     assert torch.equal(grads[0], grads[1])
+
+
+def test_data_parallel_two_ranks_on_one_card_equal_one_process(dev, tmp_path):
+    """Two gloo ranks sharing the card (``parallel.spawn_ranks``), dropout
+    on: the global batch's losses over 2 SGD steps equal one process's at
+    rtol 1e-5, and every weight is within max(5e-5, 1e-2 x its update)
+    (tests/test_production_shape_sharding.py:76-77); both ranks agree."""
+    import functools
+
+    import torch_parallel_ranks as ranks  # tests/ is on the path: "tests" may name another package
+    from vlsat_tpu_torch import parallel
+    from vlsat_tpu_torch.data.synthetic import make_batch
+    from vlsat_tpu_torch.models.mmgnet import MMGNet, MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.train.losses import vlsat_total_loss
+
+    cfg = MMGNetConfig(num_obj_classes=20, num_rel_classes=7, point_feature_size=64,
+                       dim_node=64, dim_edge=64, dim_atten=32, num_heads=4, clip_feat_dim=64)
+    batches = [make_batch(seed=s, node_counts=(5, 8, 3, 6, 4, 7, 2, 8), num_points=16,
+                          bucket=8, feat_dim=64, num_obj_classes=20, num_rel_classes=7)
+               for s in (1, 2)]
+    initial = build_mmgnet(cfg, device="cpu", seed=3).state_dict()
+    spec = dict(model_cls=MMGNet, cfg=cfg, state=initial, dropout=True, opt="sgd", lr=1e-2,
+                loss=functools.partial(vlsat_total_loss), batches=batches)
+    path = str(tmp_path / "inputs.pt")
+    torch.save({"train": {"case": spec}}, path)
+    got = parallel.spawn_ranks(ranks.run, 2, path, device="cuda", store_dir=str(tmp_path),
+                               timeout_s=300)
+    assert got["world"] == (2, "gloo", "cuda:0")
+    res = got["train/case"]
+    assert res["agree"]
+    want = ranks.train(spec, device=dev)
+    np.testing.assert_allclose(res["losses"], want["losses"], rtol=1e-5)
+    for k, w in want["state"].items():
+        diff = float(np.abs(res["state"][k] - w).max()) if w.size else 0.0
+        upd = float(np.abs(w - initial[k].numpy()).max()) if w.size else 0.0
+        assert diff <= max(5e-5, 1e-2 * upd), (k, diff, upd)

@@ -1,5 +1,5 @@
-"""Card-resident packed splits (counterpart of ``vlsat_tpu/data/resident.py``,
-``split_nbytes`` to ``ResidentGroupedEval`` and ``epoch_permutations``).
+"""Card-resident packed splits (counterpart of ``vlsat_tpu/data/resident.py``:
+``split_nbytes`` to ``ResidentShardedEval`` and ``epoch_permutations``).
 
 A packed split (``data/packed.py``) is already padded, collated and, with
 its text targets deduplicated, small: tens of MB for a 3DSSG-scale split.
@@ -42,6 +42,12 @@ def gather_rows(full: SceneBatch, rows: torch.Tensor) -> SceneBatch:
         f.name: None if getattr(full, f.name) is None
         else getattr(full, f.name).index_select(0, rows)
         for f in dataclasses.fields(SceneBatch)})
+
+
+def take_batch(stacked: SceneBatch, k: int) -> SceneBatch:
+    """Batch ``k`` of a batch-stacked split (leading (num_batches, B, ...)
+    axes, ``ResidentShardedEval``): a view, no copy."""
+    return stacked.replace(**{n: v[k] for n, v in vars(stacked).items() if v is not None})
 
 
 class ResidentScenes:
@@ -161,6 +167,81 @@ class ResidentGroupedEval:
                 if len(chunk) < k:  # a fixed (K, B) shape
                     idx = np.concatenate([idx, np.repeat(idx[-1:], k - len(chunk), axis=0)])
                 yield hosts, full, idx
+
+
+class ResidentShardedEval:
+    """A card-resident eval split for data-parallel evaluation (JAX
+    ``vlsat_tpu/data/resident.py:209-308``).
+
+    The split is stored batch-structured: per bucket, batches are padded to
+    a fixed ``batch_size`` with fully-masked scenes (the metric engine skips
+    them) and stacked to (num_batches, B, ...); each rank places only its
+    block of every batch, (num_batches, B / world, ...), on its device once.
+    Selecting batch k is then a slice on the rank's device: no per-batch
+    host-to-device payload.
+
+    Yields ``(host, device)`` pairs (host: the whole padded batch off the
+    pack's memory map, for metric assembly; device: the rank's block), or,
+    with ``group`` > 1, ``(hosts, full, ids)`` groups: up to K host batches,
+    the rank's stacked split and (K,) int32 batch ids, the tail group
+    repeating its last id (repeats are computed, never assembled).
+    ``batch_size`` is an int or a {bucket: B} mapping; every resolved size
+    must divide by the world size (the runner streams through
+    ``parallel.shard_eval_batches`` otherwise)."""
+
+    mesh_sharded = True  # evaluate() runs it data-parallel over .world
+
+    def __init__(self, packed: PackedScenes, world, batch_size, variant: int = 0,
+                 group: int = 1):
+        for b in packed.buckets:
+            if resolve_batch(batch_size, b) % world.size:
+                raise ValueError(
+                    f"batch_size {resolve_batch(batch_size, b)} (bucket {b}) does not "
+                    f"divide over {world.size} devices on mesh axis 'data'")
+        if group < 1:
+            raise ValueError(f"group must be >= 1, got {group}")
+        self.packed = packed
+        self.world = world
+        self.batch_size = batch_size
+        self.variant = variant
+        self.group = int(group)
+        self.grouped = self.group > 1  # evaluate() takes its grouped path
+        self._hosts: Dict[int, list] = {}
+        self._stacks: Dict[int, SceneBatch] = {}
+        for b in packed.buckets:
+            c, bs = packed.count(b), resolve_batch(batch_size, b)
+            hosts = [pad_batch_scenes(packed.batch(b, slice(s, min(s + bs, c)), variant), bs)
+                     for s in range(0, c, bs)]
+            self._hosts[b] = hosts
+            per = bs // world.size
+            block = slice(world.rank * per, (world.rank + 1) * per)
+            self._stacks[b] = SceneBatch(**{
+                f.name: None if getattr(hosts[0], f.name) is None
+                else torch.stack([getattr(h, f.name)[block] for h in hosts]).to(world.device)
+                for f in dataclasses.fields(SceneBatch)})
+
+    @property
+    def max_gt(self) -> int:
+        """The evaluation engine's GT-slot cap (see ``PackedScenes.max_gt``)."""
+        return self.packed.max_gt
+
+    def __len__(self) -> int:
+        return sum(len(v) for v in self._hosts.values())
+
+    def __iter__(self):
+        for b in sorted(self._hosts):
+            full, hosts_b = self._stacks[b], self._hosts[b]
+            if not self.grouped:
+                for k, host in enumerate(hosts_b):
+                    yield host, take_batch(full, k)
+                continue
+            for g0 in range(0, len(hosts_b), self.group):
+                hosts = hosts_b[g0:g0 + self.group]
+                ids = np.arange(g0, g0 + len(hosts), dtype=np.int32)
+                if len(hosts) < self.group:  # a fixed (K,) shape
+                    ids = np.concatenate([ids, np.full(self.group - len(hosts), ids[-1],
+                                                       np.int32)])
+                yield hosts, full, ids
 
 
 def epoch_permutations(counts: Dict[int, int], group: int, epoch: int, seed: int = 2020,

@@ -56,3 +56,22 @@ def decode_wire(batch: SceneBatch) -> SceneBatch:
     if batch.gt_rels is not None and batch.gt_rels.dtype == torch.uint8:
         kw["gt_rels"] = batch.gt_rels.float()
     return batch.replace(**kw) if kw else batch
+
+
+def wire_nbytes(batch: SceneBatch, dtype: str | None = None) -> int:
+    """Bytes a host batch takes on the wire under ``dtype`` (default
+    ``VLSAT_WIRE_DTYPE``), without casting: f16/bf16 halve the f32
+    ``_CAST_FIELDS`` and quarter an f32 ``gt_rels``."""
+    narrow = (dtype or wire_dtype()) in _WIRE_TYPES
+    total = 0
+    for name, v in vars(batch).items():
+        if v is None:
+            continue
+        n = v.numel() * v.element_size()
+        if narrow and v.dtype == torch.float32:
+            if name in _CAST_FIELDS:
+                n //= 2
+            elif name == "gt_rels":
+                n //= 4
+        total += n
+    return int(total)

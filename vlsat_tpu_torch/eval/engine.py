@@ -17,6 +17,14 @@ the device), ``(host, device)`` pairs (``data/resident.py``
 minibatches gathered on the device from a resident bucket run back to back
 and their packed buffers leave in one (K, n) copy.
 
+Under a data-parallel group (a loader with ``mesh_sharded``: the
+``parallel.shard_eval_batches`` wrapper, ``data.resident.ResidentShardedEval``)
+each rank runs the eval step on its block of every batch; the packed host
+buffers are gathered to rank 0, which assembles them in global scene order
+(padded, masked scenes are skipped as always; the host half is the whole
+batch), and every rank returns rank 0's metric dict.  Only rank 0 prints
+progress and writes ``save_dir``.
+
 Not ported: the 128-lane chunk trim (a TPU layout effect).
 """
 
@@ -28,9 +36,10 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vlsat_tpu_torch.data.pipeline import Prefetcher
-from vlsat_tpu_torch.data.resident import gather_rows
+from vlsat_tpu_torch.data.resident import gather_rows, take_batch
 from vlsat_tpu_torch.data.wire import encode_wire
 from vlsat_tpu_torch.eval.metrics import (
     compute_mean_predicate,
@@ -44,6 +53,7 @@ from vlsat_tpu_torch.eval.metrics import (
     triplet_rank_parts,
 )
 from vlsat_tpu_torch.eval.recall import batched_scene_hits, tally_hits_batch
+from vlsat_tpu_torch.parallel.mesh import shard_batch
 from vlsat_tpu_torch.scene import SceneBatch
 from vlsat_tpu_torch.utils.progbar import Progbar
 
@@ -143,6 +153,29 @@ def _unpack(buf: np.ndarray, layout) -> Dict[str, np.ndarray]:
     return parts
 
 
+def _gather_to_root(buf: torch.Tensor, world) -> Optional[List[torch.Tensor]]:
+    """Every rank's host buffer (same shape on each), on rank 0; None on the
+    others."""
+    out = [torch.empty_like(buf) for _ in range(world.size)] if world.rank == 0 else None
+    dist.gather(buf, out, dst=0, group=world.host_group)
+    return out
+
+
+def _from_rank0(metrics: Optional[Dict[str, float]], world) -> Dict[str, float]:
+    """Rank 0's metric dict, on every rank."""
+    box = [metrics]
+    dist.broadcast_object_list(box, src=0, group=world.host_group)
+    return box[0]
+
+
+def _merge(parts: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """The ranks' unpacked parts of one batch, concatenated along the scene
+    axis (rank r holds block r)."""
+    if len(parts) == 1:
+        return parts[0]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
 def _pin(batch: SceneBatch) -> SceneBatch:
     return batch.replace(**{k: v.pin_memory() for k, v in vars(batch).items()
                             if v is not None})
@@ -175,7 +208,11 @@ def evaluate(eval_step, state, loader: Iterable, num_rel_classes: int = 26,
     (``train.step.make_eval_step`` sets it; the CPU without it) wire-encoded,
     from pinned memory on a card; ``(host, device)`` pairs, run on the device
     half and assembled from the host half; or, when ``loader.grouped`` is
-    true, ``(hosts, full, idx)`` groups of ``data.resident.ResidentGroupedEval``.
+    true, ``(hosts, full, idx)`` groups of ``data.resident.ResidentGroupedEval``
+    (``idx`` (K, B) scene rows) or of ``ResidentShardedEval`` (``idx`` (K,)
+    batch ids of its batch-stacked split).  A loader with ``mesh_sharded``
+    evaluates data-parallel over its ``world`` (module docstring); every
+    rank of the group must call ``evaluate`` with it.
 
     Reports object / predicate / triplet Acc@k, per-class mean predicate
     accuracy and mean recall for the 3D branch, and for the 2D branch when
@@ -195,12 +232,14 @@ def evaluate(eval_step, state, loader: Iterable, num_rel_classes: int = 26,
             f"(got {num_rel_classes})")
     dev = torch.device(getattr(eval_step, "device", "cpu"))
     on_card = dev.type == "cuda"
+    world = loader.world if getattr(loader, "mesh_sharded", False) else None
+    root = world is None or world.rank == 0
     acc = {k: [] for k in ("topk_obj", "topk_obj_2d", "topk_rel", "topk_rel_2d",
                            "topk_triplet", "topk_triplet_2d")}
     cls_rows, sub_scores, obj_scores, rel_scores = [], [], [], []
     sr_acc: Dict[str, list] = {k: [] for k in SR_KEYS}
     sr_cls: Dict[str, list] = {k: [] for k in SR_KEYS}
-    progbar = Progbar(total, width=20) if verbose else None
+    progbar = Progbar(total, width=20) if verbose and root else None
     seen = 0
     prog_hits = {"obj": 0, "rel": 0, "trip": 0}
     prog_tot = {"obj": 0, "rel": 0, "trip": 0}
@@ -300,11 +339,15 @@ def evaluate(eval_step, state, loader: Iterable, num_rel_classes: int = 26,
             if grouped:
                 hosts, full, idx = item
                 idx = torch.from_numpy(np.ascontiguousarray(idx))
-                yield hosts, (full, idx.pin_memory() if on_card else idx)
+                if idx.dim() == 2:  # scene rows, gathered on the device
+                    idx = idx.pin_memory() if on_card else idx
+                yield hosts, (full, idx)
             elif isinstance(item, tuple):
                 yield item  # (host, device): nothing to copy
             else:
                 wire = encode_wire(item)
+                if world is not None:
+                    wire = shard_batch(wire, world)  # this rank's block only
                 yield item, (_pin(wire) if on_card else wire)
 
     def _parts(dev_batch: SceneBatch) -> Tuple[torch.Tensor, list]:
@@ -317,11 +360,14 @@ def evaluate(eval_step, state, loader: Iterable, num_rel_classes: int = 26,
         buf, layout, event, payload = entry
         if event is not None:
             event.synchronize()
+        bufs = [buf] if world is None else _gather_to_root(buf, world)
+        if bufs is None:  # not rank 0: rank 0 assembles
+            return
         if grouped:  # row j of the (K, n) buffer is batch j; tail rows are skipped
             for j, host in enumerate(payload):
-                _assemble(_unpack(buf[j].numpy(), layout), host)
+                _assemble(_merge([_unpack(b[j].numpy(), layout) for b in bufs]), host)
         else:
-            _assemble(_unpack(buf.numpy(), layout), payload)
+            _assemble(_merge([_unpack(b.numpy(), layout) for b in bufs]), payload)
 
     ring = _PinnedRing()
     pending: deque = deque()
@@ -329,10 +375,14 @@ def evaluate(eval_step, state, loader: Iterable, num_rel_classes: int = 26,
         with torch.inference_mode():
             if grouped:
                 full, idx = dev_in
-                rows = idx.to(dev, non_blocking=True)
+                if idx.dim() == 1:  # batch ids of a batch-stacked split
+                    batches = [take_batch(full, int(k)) for k in idx]
+                else:
+                    rows = idx.to(dev, non_blocking=True)
+                    batches = [gather_rows(full, rows[k]) for k in range(rows.shape[0])]
                 flats = []
-                for k in range(rows.shape[0]):
-                    flat, layout = _parts(gather_rows(full, rows[k]))
+                for b in batches:
+                    flat, layout = _parts(b)
                     flats.append(flat)
                 flat = torch.stack(flats)
             else:
@@ -352,6 +402,8 @@ def evaluate(eval_step, state, loader: Iterable, num_rel_classes: int = 26,
     while pending:
         _drain(pending.popleft())
 
+    if not root:  # rank 0 assembled every batch
+        return _from_rank0(None, world)
     arr = {k: (np.concatenate(v) if v else np.zeros(0, np.int64)) for k, v in acc.items()}
     cls_matrix = np.concatenate(cls_rows) if cls_rows else np.zeros((0, 5), np.int64)
 
@@ -412,4 +464,4 @@ def evaluate(eval_step, state, loader: Iterable, num_rel_classes: int = 26,
             for k, v in metrics.items():
                 print(f"Eval: {k}: {v}", file=f)
 
-    return metrics
+    return metrics if world is None else _from_rank0(metrics, world)

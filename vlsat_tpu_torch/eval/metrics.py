@@ -265,6 +265,45 @@ def topk_accuracy(ranks: np.ndarray, k: int) -> float:
     return float((ranks <= k).sum() * 100.0 / len(ranks))
 
 
+def evaluate_topk(objs_pred: np.ndarray, rels_pred: np.ndarray, gt_rel: Sequence,
+                  edges: np.ndarray, multi_rel_outputs: bool, topk: int = 101
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-edge triplet rank over the full C*C*R score cube
+    (``vlsat_tpu/eval/metrics.py:342-392``, the reference's
+    eva_utils_acc.py:82-134, which no model or runner calls).
+
+    ``objs_pred`` (N, C) log-softmax object scores, exponentiated;
+    ``rels_pred`` (E, R) sigmoid probabilities (``multi_rel_outputs``) or
+    log-softmax scores, exponentiated; ``gt_rel`` per edge (sub_cls,
+    obj_cls, [predicate ids]).  The cube cell of edge (i, j) is
+    ``(objs[i, a] * objs[j, b]) * rels[e, k]``; a GT predicate's rank is 1 +
+    the cells strictly above its cell (ties count as hits), capped at
+    ``topk + 1``; several GT predicates on one edge take the sorted
+    discount ``sorted(ranks)[i] - i``.  Returns (ranks, predicate ids in
+    edge order)."""
+    objs = np.exp(np.asarray(objs_pred, np.float32))
+    rels = np.asarray(rels_pred, np.float32)
+    if not multi_rel_outputs:
+        rels = np.exp(rels)
+    edges = np.asarray(edges).reshape(-1, 2)
+    res: List[int] = []
+    cls: List[int] = []
+    for e in range(len(edges)):
+        preds = list(gt_rel[e][2])
+        if not preds:
+            continue
+        s, o, r = objs[edges[e, 0]], objs[edges[e, 1]], rels[e]
+        # (s_a * o_b) first, then * r_k: the GT cell ties with its own
+        # threshold exactly and never counts as greater
+        cube = np.multiply.outer(np.multiply.outer(s, o), r)
+        ranks = sorted(
+            min(int((cube > (s[gt_rel[e][0]] * o[gt_rel[e][1]]) * r[p]).sum()) + 1, topk + 1)
+            for p in preds)
+        res.extend(rank - i for i, rank in enumerate(ranks))
+        cls.extend(preds)
+    return np.asarray(res), np.asarray(cls)
+
+
 def get_mean_recall(triplet_rank: np.ndarray, cls_matrix: np.ndarray,
                     topk: Sequence[int] = (50, 100), num_rel_classes: int = 26
                     ) -> np.ndarray:

@@ -6,7 +6,9 @@ cube (or of the R predicate scores, "rels" mode) are merged into a
 scene-global top-``kmax`` ranking; an edge with GT counts as recalled at K
 if one of the first K candidates names its GT.  The device side
 (``batched_scene_hits``) returns the ranked candidates' edges and hit flags;
-the host side (``tally_hits_batch``, numpy) turns them into recalls.
+the host side (``tally_hits_batch``, numpy) turns them into recalls.  The
+per-scene API (``scene_recall_topk``, ``tally_ranked_candidates``,
+``tally_hits``) ranks and tallies one scene on the host.
 
 Ranking follows ``lax.top_k``: descending, ties to the lower index (a
 stable descending sort), which for the flattened (edge, candidate) axis is
@@ -177,3 +179,100 @@ def tally_hits_batch(sel_edges: np.ndarray, hits: np.ndarray, gt_rels: np.ndarra
     nz = totals > 0
     out[nz] = correct[nz] / totals[nz][:, None]
     return scalar, out, total > 0
+
+
+# --------------------------------------------------------------------------
+# the per-scene API (vlsat_tpu/eval/recall.py:278-421): one scene's ranked
+# candidates tallied on the host; the engine uses the batched path above
+# --------------------------------------------------------------------------
+
+def tally_hits(sel_edges: np.ndarray, hits: np.ndarray, gt_rels: np.ndarray,
+               topk: Sequence[int], num_rel_classes: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Tally one scene's ranked candidate list (the reference's
+    eval_utils_recall.py:62-112): ``sel_edges`` (kmax,) candidate edge ids,
+    ``hits`` (kmax,) whether each names its edge's GT, ``gt_rels`` (ev, R)
+    the valid edges.  An edge with GT is recalled at K if one of the first K
+    candidates hits it (its first hit decides); the per-class variant
+    credits every GT predicate of a recalled edge.  Returns (scalar
+    (len(topk),), per-class (num_rel_classes, len(topk)) with -1 for absent
+    classes)."""
+    gt_pos = gt_rels[:, :num_rel_classes] > 0
+    totals = gt_pos.sum(axis=0).astype(np.float64)
+    total = float((gt_rels > 0).any(axis=1).sum())
+    first_rank_of = {}
+    for r in np.nonzero(np.asarray(hits))[0]:
+        first_rank_of.setdefault(int(sel_edges[r]), r)
+    edges = np.asarray(sorted(first_rank_of), dtype=np.int64)
+    franks = np.asarray([first_rank_of[int(e)] for e in edges], dtype=np.int64)
+    scalar = np.zeros(len(topk))
+    correct_cls = np.zeros((num_rel_classes, len(topk)))
+    for t, k in enumerate(topk):
+        rec = edges[franks < k]
+        scalar[t] = len(rec)
+        if len(rec):
+            correct_cls[:gt_pos.shape[1], t] = gt_pos[rec].sum(axis=0)
+    out = np.full((num_rel_classes, len(topk)), -1.0)
+    nz = totals > 0
+    out[nz] = correct_cls[nz] / totals[nz, None]
+    return scalar / max(total, 1.0), out
+
+
+def tally_ranked_candidates(sel_edges: np.ndarray, sel_idx: np.ndarray, gt_rels: np.ndarray,
+                            sub_cls: np.ndarray, obj_cls: np.ndarray, *, topk: Sequence[int],
+                            num_rel_classes: int, evaluate: str, c: int
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """Hit flags of one scene's ranked candidates, then ``tally_hits``:
+    "rels" needs the GT predicate, "triplet" the exact (sub_cls, obj_cls,
+    predicate) of the cube index ``sel_idx``."""
+    nrel = gt_rels.shape[-1]
+    sel_edges, sel_idx = np.asarray(sel_edges), np.asarray(sel_idx)
+    if evaluate == "rels":
+        hits = gt_rels[sel_edges, sel_idx] > 0
+    else:
+        i, j, rl = sel_idx // (c * nrel), (sel_idx // nrel) % c, sel_idx % nrel
+        hits = ((sub_cls[sel_edges] == i) & (obj_cls[sel_edges] == j)
+                & (gt_rels[sel_edges, rl] > 0))
+    return tally_hits(sel_edges, hits, gt_rels, topk=topk, num_rel_classes=num_rel_classes)
+
+
+def scene_recall_topk(obj_logits: np.ndarray, rel_probs: np.ndarray, gt_rels: np.ndarray,
+                      gt_class: np.ndarray, edge_index: np.ndarray,
+                      topk: Sequence[int] = (20, 50, 100), topk_each: int = 100,
+                      num_rel_classes: int = 26, per_class: bool = False,
+                      evaluate: str = "triplet", valid_edges: "int | None" = None,
+                      return_both: bool = False):
+    """One scene's R@K (``per_class=True``: the per-class matrix;
+    ``return_both``: both).  ``evaluate="triplet"`` (sgcls) ranks the
+    sub * obj * predicate confidences and needs the exact GT triplet;
+    "rels" (predcls) ranks the predicate scores and needs only the GT
+    predicate.  ``topk_each=1`` is the graph-constrained variant, >= R the
+    unconstrained one.  With padded inputs only the first ``valid_edges``
+    edge rows are real: the candidates are computed at the padded shape and
+    the padding is dropped on the host."""
+    e_cnt, nrel = rel_probs.shape
+    c = obj_logits.shape[-1]
+    ev = e_cnt if valid_edges is None else int(valid_edges)
+    if evaluate == "triplet":
+        conf2, idx2 = per_edge_topk(torch.as_tensor(np.asarray(obj_logits)),
+                                    torch.as_tensor(np.asarray(rel_probs)),
+                                    torch.as_tensor(np.asarray(edge_index)),
+                                    topk_each=topk_each)
+        conf2, idx2 = conf2.numpy(), idx2.numpy().astype(np.int64)
+    elif evaluate == "rels":
+        idx2 = np.argsort(-rel_probs, axis=-1, kind="stable")[:, :min(topk_each, nrel)]
+        idx2 = idx2.astype(np.int64)
+        conf2 = np.take_along_axis(rel_probs, idx2, axis=-1)
+    else:
+        raise ValueError(f"unknown evaluate mode {evaluate!r}")
+    k_per = conf2.shape[1]
+    conf = conf2[:ev].reshape(-1)
+    cube_idx = idx2[:ev].reshape(-1)
+    edge_ids = np.repeat(np.arange(ev), k_per)
+    order = np.argsort(-conf, kind="stable")[:int(max(topk))]
+    scalar, out = tally_ranked_candidates(
+        edge_ids[order], cube_idx[order], gt_rels[:ev], gt_class[edge_index[:, 0]],
+        gt_class[edge_index[:, 1]], topk=topk, num_rel_classes=num_rel_classes,
+        evaluate=evaluate, c=c)
+    if return_both:
+        return scalar, out
+    return out if per_class else scalar

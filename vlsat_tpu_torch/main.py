@@ -1,7 +1,7 @@
 """CLI entry (counterpart of ``vlsat_tpu/main.py``):
 
     python -m vlsat_tpu_torch.main --mode {train,eval,trace,serve} --config cfg.json
-                                   [--device cuda|cpu]
+                                   [--device cuda|cpu] [--data-parallel]
 
 Loads the config (the defaults merged with the JSON; a JAX experiment JSON
 loads unchanged), seeds, archives the resolved config as
@@ -22,14 +22,31 @@ and dispatches:
   Ctrl-C.
 
 ``PRNG_IMPL`` and ``COMPILE_CACHE_DIR`` configure JAX and are ignored here.
-``--data-parallel`` over several cards is not ported yet (ROADMAP.md,
-queue 1 item 5); on one card it changes nothing, as in JAX on one device.
+
+``--data-parallel`` (train, eval) shards every batch's scenes over ranks,
+one process a rank, with the JAX mesh's global-batch semantics
+(``train/runner.py``):
+
+* under torchrun (``RANK``/``WORLD_SIZE`` set) each process joins that
+  group, rank r on ``cuda:LOCAL_RANK`` (gloo where ranks share a card, and
+  with ``--device cpu``);
+* without it, on a host with several cards, one rank a visible card is
+  spawned (JAX shards over all devices) and rank 0's metrics are returned;
+* with one card, or on the CPU without a launcher, it runs as one process,
+  as JAX's mesh on one device.
+
+A group that cannot form raises; a rank that fails fails the run.  Serve
+and trace ignore the flag, as the JAX runner's server does.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+import torch
+
+from vlsat_tpu_torch import parallel
 
 
 def parse_args(argv=None):
@@ -41,7 +58,8 @@ def parse_args(argv=None):
     p.add_argument("--exp", type=str, default="default")
     p.add_argument("--loadbest", action="store_true", help="load best (vs latest) checkpoint")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard batches over all devices (one card: no effect)")
+                   help="shard batches over ranks: torchrun's, else one a card (one card: "
+                        "no effect)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default: the card; 'cpu' for the CPU)")
     p.add_argument("--host", type=str, default="127.0.0.1", help="serve: bind address")
@@ -56,6 +74,20 @@ def main(argv=None):
     """Run one mode; returns the closing validation's metrics (train, eval)
     or the trace report (trace)."""
     args = parse_args(argv)
+    if args.data_parallel and args.mode in ("train", "eval") and parallel.world() is None:
+        if "WORLD_SIZE" in os.environ:  # torchrun's group
+            parallel.init_data_parallel(device=args.device)
+            try:
+                return _run(args)
+            finally:
+                parallel.shutdown()
+        cards = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 0
+        if cards > 1:
+            return parallel.spawn_ranks(main, cards, argv)
+    return _run(args)
+
+
+def _run(args):
     from vlsat_tpu_torch.config import load_config
     from vlsat_tpu_torch.utils.seeding import set_random_seed
 
@@ -67,8 +99,10 @@ def main(argv=None):
 
     exp_dir = os.path.join(cfg.PATH, cfg.NAME, args.exp)
     os.makedirs(exp_dir, exist_ok=True)
-    with open(os.path.join(exp_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    w = parallel.world()
+    if w is None or w.rank == 0:
+        with open(os.path.join(exp_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
 
     from vlsat_tpu_torch.train.runner import Runner
 

@@ -13,6 +13,7 @@ from torch import nn
 
 from vlsat_tpu_torch.ops.kernels.pointnet_kernel import pointnet_encode_fused
 from vlsat_tpu_torch.ops.pointnet import pointnet_encode
+from vlsat_tpu_torch.parallel.mesh import global_rand, global_sum
 
 
 class DenseStack(nn.Module):
@@ -52,7 +53,10 @@ class Dropout(nn.Module):
     caller passes as ``rng`` (flax's ``nn.Dropout`` with an explicit key):
     in training mode an element is kept with probability 1 - p and scaled
     by 1 / (1 - p); in eval mode, or at p = 0, the identity.  The global RNG
-    is never used, so a seed fixes every mask of a step."""
+    is never used, so a seed fixes every mask of a step.  Under a
+    data-parallel step each rank draws the global batch's mask and keeps its
+    block (``parallel.global_rand``), so the masks equal the unsharded
+    step's."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -63,7 +67,7 @@ class Dropout(nn.Module):
             return x
         if rng is None:
             raise ValueError("dropout in training mode needs a torch.Generator (rng)")
-        keep = torch.rand(x.shape, generator=rng, device=x.device) >= self.p
+        keep = global_rand(x.shape, rng, x.device) >= self.p
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 
 
@@ -95,7 +99,11 @@ class MaskedBatchNorm(nn.Module):
     where ``mask`` is set (n = max(sum(mask), 1)) and moves the running
     statistics in place with momentum 0.1, the variance unbiased by
     n / max(n - 1, 1) (torch's ``BatchNorm1d`` would raise at n = 1, and
-    its statistics would count the padding)."""
+    its statistics would count the padding).  Under a data-parallel step
+    the sums and the count are global (``parallel.global_sum``), with the
+    unsharded formula (mean, then the mean squared deviation), so every
+    rank normalises with the global batch's statistics and moves identical
+    running statistics."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -111,10 +119,11 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             w = mask.to(x.dtype)[..., None]
-            n = w.sum().clamp(min=1.0)
             axes = tuple(range(x.dim() - 1))
-            mean = (x * w).sum(dim=axes) / n
-            var = (w * torch.square(x - mean)).sum(dim=axes) / n
+            sums = global_sum(torch.cat([(x * w).sum(dim=axes), w.sum().reshape(1)]))
+            n = sums[-1].clamp(min=1.0)
+            mean = sums[:-1] / n
+            var = global_sum((w * torch.square(x - mean)).sum(dim=axes)) / n
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_((1 - m) * self.running_mean + m * mean)

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from vlsat_tpu_torch.parallel.mesh import global_sum
+
 
 class STNkd(nn.Module):
     """(..., P, k) -> (..., k, k): conv 64, 128, 1024 (ReLU) over the
@@ -46,7 +48,8 @@ def apply_transform(pts: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
 
 
 def feature_transform_regularizer(trans: torch.Tensor) -> torch.Tensor:
-    """mean over transforms of ||T T^t - I||_F."""
+    """mean over the global batch's transforms of ||T T^t - I||_F."""
     eye = torch.eye(trans.shape[-1], dtype=trans.dtype, device=trans.device)
     diff = torch.matmul(trans, trans.transpose(-1, -2)) - eye
-    return torch.sqrt(torch.sum(diff * diff, dim=(-2, -1))).mean()
+    norms = torch.sqrt(torch.sum(diff * diff, dim=(-2, -1)))
+    return norms.sum() / global_sum(norms.new_tensor(float(norms.numel())))

@@ -10,6 +10,11 @@ BCE clips probabilities to [1e-7, 1 - 1e-7] (``F.binary_cross_entropy``
 clamps the log at -100 instead), and every mean is over valid nodes or
 edges, counted over the broadcast elements (valid edges x classes for the
 BCE).  Nothing here reads a value back to the host.
+
+Every denominator and class count is a ``parallel.global_sum``: under a
+data-parallel train step each rank's term is its numerator over the global
+batch's denominator (the ranks' terms sum to the global loss, as in JAX's
+sharded step); outside one it is the plain sum.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 
 from vlsat_tpu_torch.ops.graph import gather_edge_endpoints
 from vlsat_tpu_torch.ops.norm import safe_normalize
+from vlsat_tpu_torch.parallel.mesh import global_sum
 from vlsat_tpu_torch.scene import SceneBatch
 
 Aux = Dict[str, torch.Tensor]
@@ -27,11 +33,12 @@ Aux = Dict[str, torch.Tensor]
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean of ``x`` over the entries where ``mask`` (broadcast over x's
-    trailing axes) is set; the count is of broadcast elements, at least 1."""
+    trailing axes) is set; the count is of broadcast elements over the
+    global batch, at least 1."""
     m = mask.to(x.dtype)
     while m.dim() < x.dim():
         m = m[..., None]
-    denom = (m * torch.ones_like(x)).sum().clamp(min=1.0)
+    denom = global_sum((m * torch.ones_like(x)).sum()).clamp(min=1.0)
     return (x * m).sum() / denom
 
 
@@ -52,7 +59,7 @@ def dynamic_rel_weights(gt_rels: torch.Tensor, edge_mask: torch.Tensor,
     m = edge_mask.to(gt_rels.dtype)
     per_class = (gt_rels * m[..., None]).sum(dim=tuple(range(gt_rels.dim() - 1)))
     zeros = ((gt_rels.sum(-1) == 0) * m).sum()[None]
-    counts = torch.cat([zeros, per_class])
+    counts = global_sum(torch.cat([zeros, per_class]))
     weight = torch.abs(1.0 / (torch.log(counts + 1.0) + 1.0))
     if ignore_none_rel:
         weight = torch.cat([weight.new_zeros(1), weight[1:]]) * 1e-2
@@ -80,7 +87,8 @@ def single_label_rel_weights(gt_rels_onehot: torch.Tensor, edge_mask: torch.Tens
     """DYNAMIC weights of the single-label mode (losses.py:82-91): per-class
     counts of the one-hot targets (class 0 = none), w = 1/(log(c+1)+1)."""
     m = edge_mask.to(gt_rels_onehot.dtype)
-    counts = (gt_rels_onehot * m[..., None]).sum(dim=tuple(range(gt_rels_onehot.dim() - 1)))
+    counts = global_sum(
+        (gt_rels_onehot * m[..., None]).sum(dim=tuple(range(gt_rels_onehot.dim() - 1))))
     weight = torch.abs(1.0 / (torch.log(counts + 1.0) + 1.0))
     if ignore_none_rel:
         weight = torch.cat([weight.new_zeros(1), weight[1:]]) * 1e-2
@@ -96,8 +104,8 @@ def single_label_rel_nll(log_probs: torch.Tensor, gt_rels_onehot: torch.Tensor,
     m = edge_mask.to(log_probs.dtype)
     if weight is not None:
         w_y = (gt_rels_onehot * weight).sum(-1)
-        return (nll * w_y * m).sum() / (w_y * m).sum().clamp(min=1e-12)
-    return (nll * m).sum() / m.sum().clamp(min=1.0)
+        return (nll * w_y * m).sum() / global_sum((w_y * m).sum()).clamp(min=1e-12)
+    return (nll * m).sum() / global_sum(m.sum()).clamp(min=1.0)
 
 
 def triplet_distill_loss(obj_logits_3d: torch.Tensor, rel_cls_3d: torch.Tensor,
@@ -121,7 +129,7 @@ def triplet_distill_loss(obj_logits_3d: torch.Tensor, rel_cls_3d: torch.Tensor,
         ns2 = (s2_i[sl, :, None] * s2_j[sl, None, :]).flatten(1)
         diff = (ns3[:, :, None] * r3[sl, None, :] - ns2[:, :, None] * r2[sl, None, :]).abs()
         total = total + (diff.sum(dim=(1, 2)) * m[sl]).sum()
-    return total / edge_mask.sum().clamp(min=1)
+    return total / global_sum(edge_mask.sum()).clamp(min=1)
 
 
 def resolve_rel_weights(mode: str, gt_rels: torch.Tensor, edge_mask: torch.Tensor,

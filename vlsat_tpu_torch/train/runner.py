@@ -11,9 +11,19 @@ caller asks for the CPU.
 Where the JAX runner draws a dropout key per step with
 ``jax.random.split``, this one seeds step t's dropout with
 ``train.step.fold_in(SEED + 7, t)``.  One device sync a step reads the
-logged loss terms.  The JAX runner's device mesh (``data_parallel``) is not
-ported (ROADMAP.md, queue 1 item 5): on one card it is a no-op, as JAX's is
-on one device.
+logged loss terms.
+
+``data_parallel`` with a joined group of more than one rank
+(``parallel.init_data_parallel``; ``main --data-parallel`` joins or spawns
+it) is the JAX runner's mesh: every rank reads the same global batches and
+its train steps take its block of scenes (global-batch losses, gradients
+and BatchNorm statistics); validation runs data-parallel through
+``ResidentShardedEval`` when every eval batch size divides the world size,
+else through the streaming loader and ``parallel.shard_eval_batches``; the
+resident train split stays single-rank, as in JAX.  Rank 0 alone writes
+checkpoints, ``epoch_stats.jsonl``, the metric log and ``result.txt``;
+every rank loads.  With one rank (or one card and no launcher) it changes
+nothing, as JAX's mesh on one device.
 """
 
 from __future__ import annotations
@@ -28,14 +38,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vlsat_tpu_torch import parallel
 from vlsat_tpu_torch.config import Config
 from vlsat_tpu_torch.data.assets import (build_triplet_vocab, load_relationship_json,
                                          read_classes, read_relationships)
+from vlsat_tpu_torch.data.bucket_batch import resolve_batch
 from vlsat_tpu_torch.data.dataset import SceneLoader, SSGScenes
 from vlsat_tpu_torch.data.packed import PackedLoader, PackedScenes
 from vlsat_tpu_torch.data.pipeline import Prefetcher
 from vlsat_tpu_torch.data.resident import (ResidentEvalLoader, ResidentGroupedEval,
-                                           ResidentScenes, epoch_permutations, split_nbytes)
+                                           ResidentScenes, ResidentShardedEval,
+                                           epoch_permutations, split_nbytes)
 from vlsat_tpu_torch.device import resolve_device
 from vlsat_tpu_torch.eval.engine import evaluate
 from vlsat_tpu_torch.models.mmgnet import MMGNet
@@ -60,10 +73,20 @@ class Runner:
     def __init__(self, cfg: Config, data_parallel: bool = False, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if data_parallel and self.device.type == "cuda" and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                "data parallelism over several cards is not ported yet "
-                "(ROADMAP.md, queue 1 item 5)")
+        w = parallel.world()
+        self.world = w if data_parallel and w is not None and w.size > 1 else None
+        if self.world is not None:
+            if self.world.device.type != self.device.type:
+                raise ValueError(f"the data-parallel group runs on {self.world.device}, "
+                                 f"not on {self.device}")
+            self.device = self.world.device
+        elif data_parallel and w is None and self.device.type == "cuda" \
+                and torch.cuda.device_count() > 1:
+            raise RuntimeError(
+                "data parallelism over several cards runs one process a card: launch under "
+                "torchrun, or through python -m vlsat_tpu_torch.main --data-parallel, which "
+                "joins or spawns the group (parallel.init_data_parallel)")
+        self.rank0 = self.world is None or self.world.rank == 0
         d = cfg.dataset
         self.mode = cfg.get("MODE", "train")
 
@@ -130,10 +153,11 @@ class Runner:
         exp = cfg.get("exp", "default")
         self.exp_dir = os.path.join(cfg.PATH, cfg.NAME, exp)
         self.ckpt = CheckpointManager(os.path.join(self.exp_dir, "checkpoints"))
-        self.logger = MetricLogger(os.path.join(cfg.PATH, "logs", cfg.NAME, exp))
+        self.logger = (MetricLogger(os.path.join(cfg.PATH, "logs", cfg.NAME, exp))
+                       if self.rank0 else None)
         self.state: Optional[TrainState] = None
         self._packed_cache = {}
-        self._eval_resident: Optional[ResidentScenes] = None
+        self._eval_resident = None  # ResidentScenes, or ResidentShardedEval under a group
 
         self.train_triplet_vocab = None
         try:
@@ -146,10 +170,19 @@ class Runner:
     # ------------------------------------------------------------------ setup
     def close(self) -> None:
         """Release the metric logger (and its TensorBoard writer thread)."""
-        self.logger.close()
+        if self.logger is not None:
+            self.logger.close()
+
+    def _log(self, items, step: int) -> None:
+        if self.logger is not None:
+            self.logger.log(items, step)
 
     def _fresh_state(self) -> TrainState:
         return create_train_state(self.model, self.optimizer, seed=self.cfg.SEED)
+
+    def _replicated(self, state: TrainState) -> TrainState:
+        """Rank 0's weights and optimizer state on every rank."""
+        return parallel.replicate(state, self.world) if self.world is not None else state
 
     def load(self, best: bool = False, allow_fallback: bool = False) -> bool:
         """Restore the latest (``best=True``: the best) checkpoint; False and
@@ -159,7 +192,22 @@ class Runner:
         cannot be restored (a changed model, a damaged file) is archived
         aside and training starts fresh.  Otherwise (eval, serve) restore
         errors propagate: evaluating a fresh model silently would report
-        meaningless metrics with exit code 0."""
+        meaningless metrics with exit code 0.
+
+        Under a group rank 0 restores (or archives) first and the other
+        ranks then read what it left, so all restore the same checkpoint
+        or all start fresh."""
+        if self.world is not None and not self.rank0:
+            self.world.barrier()  # wait for rank 0's restore or archive
+        try:
+            restored = self._load(best, allow_fallback)
+        finally:
+            if self.world is not None and self.rank0:
+                self.world.barrier()
+        self.state = self._replicated(self.state)
+        return restored
+
+    def _load(self, best: bool, allow_fallback: bool) -> bool:
         state = self._fresh_state()
         try:
             restored = self.ckpt.restore(state, best=best)
@@ -217,12 +265,26 @@ class Runner:
     def _eval_loader(self, packed: PackedScenes, bs):
         """A loader over a packed validation split: resident on the device
         under ``EVAL_RESIDENT`` (the copy is kept across validation passes),
-        ``EVAL_GROUP`` > 1 batches per output copy; else streamed."""
-        if not self._resident("EVAL_RESIDENT", packed):
+        ``EVAL_GROUP`` > 1 batches per output copy; else streamed.  Under a
+        group: ``ResidentShardedEval`` when resident and every resolved batch
+        size divides the world size, else the streamed batches padded and
+        sharded (``parallel.shard_eval_batches``)."""
+        resident = self._resident("EVAL_RESIDENT", packed)
+        group = max(int(self.cfg.get("EVAL_GROUP", 4)), 1)
+        if self.world is not None:
+            if resident and all(resolve_batch(bs, b) % self.world.size == 0
+                                for b in packed.buckets):
+                cached = self._eval_resident
+                if (not isinstance(cached, ResidentShardedEval) or cached.packed is not packed
+                        or cached.batch_size != bs or cached.group != group):
+                    cached = self._eval_resident = ResidentShardedEval(
+                        packed, self.world, bs, group=group)
+                return cached
+            return parallel.shard_eval_batches(PackedLoader(packed, batch_size=bs), self.world)
+        if not resident:
             return PackedLoader(packed, batch_size=bs)
         if self._eval_resident is None or self._eval_resident.packed is not packed:
             self._eval_resident = ResidentScenes(packed, device=self.device)
-        group = int(self.cfg.get("EVAL_GROUP", 4))
         if group > 1:
             return ResidentGroupedEval(self._eval_resident, bs, group=group)
         return ResidentEvalLoader(self._eval_resident, bs)
@@ -231,8 +293,11 @@ class Runner:
         packed = self._packed("validation")
         if packed is not None:
             return self._eval_loader(packed, bs)
-        return SceneLoader(self.valid_scenes, batch_size=bs if isinstance(bs, int) else 1,
-                           shuffle=False, buckets=self.cfg.dataset.node_buckets)
+        loader = SceneLoader(self.valid_scenes, batch_size=bs if isinstance(bs, int) else 1,
+                             shuffle=False, buckets=self.cfg.dataset.node_buckets)
+        if self.world is not None:
+            loader = parallel.shard_eval_batches(loader, self.world)
+        return loader
 
     # ------------------------------------------------------------------ train
     def train(self) -> None:
@@ -246,7 +311,7 @@ class Runner:
                                  seed=cfg.SEED, drop_last=True, for_train=True,
                                  buckets=cfg.dataset.node_buckets)
         if self.state is None:
-            self.state = self._fresh_state()
+            self.state = self._replicated(self._fresh_state())
         if self.use_pretrain:
             # reference load_pretrain_model: the weights only, then train the
             # predictor heads (model_base.py:131-147)
@@ -271,24 +336,28 @@ class Runner:
                   text_table=packed.text_table if packed is not None else None)
         # TRAIN_MICROSTEPS = K train steps per call; TRAIN_RESIDENT keeps the
         # packed split on the device and sends only (K*B,) row permutations
+        # (single-rank: under a group the steps shard the streamed batches)
         micro_k = max(int(cfg.get("TRAIN_MICROSTEPS", 1)), 1)
-        resident = packed is not None and self._resident("TRAIN_RESIDENT", packed)
+        resident = (packed is not None and self.world is None
+                    and self._resident("TRAIN_RESIDENT", packed))
         if resident:
             step_fn = make_resident_multi_train_step(self.model, self.optimizer,
                                                      batch_size=cfg.Batch_Size, **kw)
             resident_cache = {}
         elif micro_k > 1:
-            step_fn = make_multi_train_step(self.model, self.optimizer, **kw)
+            step_fn = make_multi_train_step(self.model, self.optimizer, world=self.world, **kw)
         else:
-            step_fn = make_train_step(self.model, self.optimizer, **kw)
+            step_fn = make_train_step(self.model, self.optimizer, world=self.world, **kw)
         eval_fn = make_eval_step(self.model, device=self.device)
 
         start_epoch = 1 + self.state.step // max(len(loader), 1)
         eva_res = -1.0
         for epoch in range(start_epoch, cfg.MAX_EPOCHES + 1):
-            print(f"\nTraining epoch: {epoch}")
+            if self.rank0:
+                print(f"\nTraining epoch: {epoch}")
             epoch_t0, epoch_scenes = time.perf_counter(), 0
-            progbar = Progbar(len(loader), width=20, stateful_metrics=["Misc/epo", "Misc/it"])
+            progbar = Progbar(len(loader), width=20, verbose=int(self.rank0),
+                              stateful_metrics=["Misc/epo", "Misc/it"])
             if resident:
                 variant = (epoch - 1) % packed.variants
                 if variant not in resident_cache:
@@ -326,18 +395,20 @@ class Runner:
                 progbar.add(k, values=logs)
                 epoch_scenes += len(item[1]) if resident else k * int(cfg.Batch_Size)
                 if cfg.LOG_INTERVAL and (it % cfg.LOG_INTERVAL) < k:
-                    self.logger.log(logs, it)
+                    self._log(logs, it)
                 if it >= self.max_iteration:
                     break
             # the reference saves every epoch (model.py:149); CKPT_EPOCH_INTERVAL
             # thins that out, and the final epoch always saves
             ck_int = int(cfg.get("CKPT_EPOCH_INTERVAL", 1))
-            if (epoch % max(ck_int, 1) == 0 or self.state.step >= self.max_iteration
-                    or epoch == int(cfg.MAX_EPOCHES)):
+            if self.rank0 and (epoch % max(ck_int, 1) == 0
+                               or self.state.step >= self.max_iteration
+                               or epoch == int(cfg.MAX_EPOCHES)):
                 self.ckpt.save(self.state, eva_res if eva_res >= 0 else None)
             validated = None
             if cfg.VALID_INTERVAL > 0 and epoch % cfg.VALID_INTERVAL == 0:
-                print("\nstart validation...")
+                if self.rank0:
+                    print("\nstart validation...")
                 val_t0 = time.perf_counter()
                 metrics = evaluate(
                     eval_fn, self.state.model.state_dict(),
@@ -347,9 +418,11 @@ class Runner:
                 eva_res = metrics["mean_recall_50"]
                 validated = {"mean_recall_50": round(float(eva_res), 5),
                              "val_wall_s": round(time.perf_counter() - val_t0, 2)}
-                self.logger.log(list(metrics.items()), self.state.step)
-                self.ckpt.save(self.state, eva_res)
-            self._write_epoch_stats(epoch, epoch_t0, epoch_scenes, validated)
+                self._log(list(metrics.items()), self.state.step)
+                if self.rank0:
+                    self.ckpt.save(self.state, eva_res)
+            if self.rank0:
+                self._write_epoch_stats(epoch, epoch_t0, epoch_scenes, validated)
             if self.state.step >= self.max_iteration:
                 break
 
@@ -427,6 +500,7 @@ class Runner:
             multi_rel=self.cfg.MODEL.multi_rel_outputs,
             # the in21k protocol (process_val2/3): scene-level R@K and mR@K
             scene_recall=bool(self.cfg.get("SCENE_RECALL", False)))
-        for k, v in metrics.items():
-            print(f"Eval: {k}: {v}")
+        if self.rank0:
+            for k, v in metrics.items():
+                print(f"Eval: {k}: {v}")
         return metrics

@@ -14,6 +14,14 @@ Dropout draws from a ``torch.Generator`` on the step's device seeded with
 the step's ``rng`` (an int, in the role of a JAX key); a multi-step call
 derives step i's seed from (rng, i) with ``fold_in``.  The masks cannot
 match flax's streams; the same seed gives the same masks.
+
+Under a data-parallel group (``parallel.init_data_parallel``) the train
+steps keep the JAX sharded step's global-batch semantics: every rank passes
+the same global batch and copies only its block of scenes to its device;
+the forward and loss run inside ``parallel.reducing`` (global denominators,
+DYNAMIC counts, BatchNorm moments and dropout masks); the gradients and the
+logged loss terms are summed over the ranks, so every rank applies the
+global batch's gradient and logs the global loss.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from vlsat_tpu_torch.data.resident import gather_rows
 from vlsat_tpu_torch.data.wire import decode_wire
 from vlsat_tpu_torch.device import resolve_device
 from vlsat_tpu_torch.models.mmgnet import MMGNet
+from vlsat_tpu_torch.parallel import mesh
 from vlsat_tpu_torch.scene import SceneBatch
 from vlsat_tpu_torch.train.losses import vlsat_total_loss
 from vlsat_tpu_torch.train.optim import OptimizerSpec
@@ -56,8 +65,17 @@ def _materialize_text(batch: SceneBatch, table) -> SceneBatch:
     return batch.replace(rel_text_feat=table[batch.rel_text_idx.long()], rel_text_idx=None)
 
 
+def _all_reduce_(tensors: Sequence[torch.Tensor], world: mesh.World) -> None:
+    """Sum same-dtype ``tensors`` over the ranks in place, in one
+    collective."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    torch.distributed.all_reduce(flat, group=world.group)
+    for t, v in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(v.view_as(t))
+
+
 def make_train_step(model: nn.Module, optimizer: OptimizerSpec, lambda_o: float = 0.1,
-                    objective=None, text_table=None, device=None
+                    objective=None, text_table=None, device=None, world=None
                     ) -> Callable[[TrainState, SceneBatch, int], Tuple[TrainState, Aux]]:
     """Returns ``train_step(state, batch, rng) -> (state, aux)`` for a state
     made by ``create_train_state(model, optimizer)``.  The (wire-encoded)
@@ -67,15 +85,23 @@ def make_train_step(model: nn.Module, optimizer: OptimizerSpec, lambda_o: float 
     objective's terms and ``logit_scale`` as device tensors.
 
     ``text_table``: an optional (T, D) table of text targets; batches then
-    carry (B, E) int32 ``rel_text_idx`` rows, gathered on the device."""
+    carry (B, E) int32 ``rel_text_idx`` rows, gathered on the device.
+
+    ``world``: the data-parallel group (default: the one this process
+    joined, if any).  Every rank then passes the same global batch, whose
+    scene count must divide by the world size; the step runs on the rank's
+    block and its update and ``aux`` are the global batch's on every rank.
+    ``train_step.local(state, block, rng)`` takes a block already cut
+    (``parallel.shard_batch``)."""
     if objective is None:
         objective = lambda outputs, batch: vlsat_total_loss(outputs, batch, lambda_o=lambda_o)
     dev = resolve_device(device)
+    world = mesh.world() if world is None else world
     _fp32()
     table = None if text_table is None else torch.as_tensor(
         np.asarray(text_table, np.float32)).to(dev)
 
-    def train_step(state: TrainState, batch: SceneBatch, rng: int
+    def local_step(state: TrainState, batch: SceneBatch, rng: int
                    ) -> Tuple[TrainState, Aux]:
         if state.model is not model:
             raise ValueError("the state was not created for this step's model")
@@ -83,17 +109,32 @@ def make_train_step(model: nn.Module, optimizer: OptimizerSpec, lambda_o: float 
             model.train()
         batch = _materialize_text(decode_wire(batch.to(dev, non_blocking=True)), table)
         gen = torch.Generator(device=dev).manual_seed(rng)
-        outputs = model(batch, istrain=True, rng=gen)
-        loss, aux = objective(outputs, batch)
-        if "logit_scale" in outputs:
-            aux["logit_scale"] = outputs["logit_scale"]
+        with mesh.reducing(world):
+            outputs = model(batch, istrain=True, rng=gen)
+            loss, aux = objective(outputs, batch)
+        aux = {k: v.detach() for k, v in aux.items()}
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if world is not None:
+            # each rank's loss is its numerator over the global denominator:
+            # the sum of the ranks' gradients is the global batch's
+            _all_reduce_([p.grad for p in model.parameters() if p.grad is not None], world)
+            _all_reduce_(list(aux.values()), world)
+        if "logit_scale" in outputs:
+            aux["logit_scale"] = outputs["logit_scale"].detach()
         optimizer.update(state.optimizer, state.scheduler)
         state.step += 1
-        return state, {k: v.detach() for k, v in aux.items()}
+        return state, aux
 
-    train_step.device = dev
+    def train_step(state: TrainState, batch: SceneBatch, rng: int
+                   ) -> Tuple[TrainState, Aux]:
+        if world is not None:
+            batch = mesh.shard_batch(batch, world)
+        return local_step(state, batch, rng)
+
+    train_step.device = local_step.device = dev
+    train_step.world = local_step.world = world
+    train_step.local = local_step
     return train_step
 
 
@@ -114,17 +155,21 @@ def _unstack(batches: SceneBatch, i: int) -> SceneBatch:
 
 
 def make_multi_train_step(model: nn.Module, optimizer: OptimizerSpec, lambda_o: float = 0.1,
-                          objective=None, text_table=None, device=None
+                          objective=None, text_table=None, device=None, world=None
                           ) -> Callable[[TrainState, SceneBatch, int], Tuple[TrainState, Aux]]:
     """K train steps per call over a ``stack_batches`` stack, moved to the
     device in one copy; step i's dropout seed is ``fold_in(rng, i)``.
     Returns ``fn(state, stacked, rng) -> (state, aux)`` with ``aux["loss"]``
-    the last step's loss and ``aux["losses"]`` all K (device tensors)."""
+    the last step's loss and ``aux["losses"]`` all K (device tensors).
+    Under a data-parallel group (``world``, as in ``make_train_step``) each
+    rank copies its block of axis 1 (``parallel.shard_stacked_batch``)."""
     step = make_train_step(model, optimizer, lambda_o=lambda_o, objective=objective,
-                           text_table=text_table, device=device)
+                           text_table=text_table, device=device, world=world).local
 
     def multi_step(state: TrainState, batches: SceneBatch, rng: int
                    ) -> Tuple[TrainState, Aux]:
+        if step.world is not None:
+            batches = mesh.shard_stacked_batch(batches, step.world)
         batches = batches.to(step.device, non_blocking=True)
         losses = []
         for i in range(batches.obj_points.shape[0]):
@@ -154,7 +199,12 @@ def make_resident_multi_train_step(model: nn.Module, optimizer: OptimizerSpec,
     ``make_multi_train_step`` fed the same rows.  Only the permutation
     crosses to the device.  ``split_batch=None`` gives the unbound form
     ``fn(state, split_batch, perm, rng)``, which serves every bucket and
-    pack variant.  ``aux`` as in ``make_multi_train_step``."""
+    pack variant.  ``aux`` as in ``make_multi_train_step``.  It stays
+    single-rank, as in JAX (``vlsat_tpu/train/runner.py:372-375``): under a
+    data-parallel group it raises."""
+    if mesh.world() is not None:
+        raise ValueError("the resident multi-step is single-rank; under a data-parallel "
+                         "group train with make_train_step or make_multi_train_step")
     step = make_train_step(model, optimizer, lambda_o=lambda_o, objective=objective,
                            text_table=text_table, device=device)
 
