@@ -144,14 +144,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
     metrics equal to its closing validation's, one checkpoint directory,
     one ``result.txt``, one epoch row and one metric log, its first logged
     losses within 1e-5 relative of a one-process run's).  Phases 10-14's
-    work directories are removed at its end.
+    work directories are removed at its end;
+15. the offline path, on 16 data-feed scans (the node and relation counts
+    of the 3DSSG validation split) laid out as ``<root>/data/3RScan/<scan>``,
+    with seeded camera rigs around each scan: which decode libraries
+    (PIL, imageio) the host has, and which file-decode routes therefore
+    run on decoded arrays instead; ``preprocess.depth.visible_instances_per_frame``
+    over 60 rendered 224x172 depth maps at stride 8 against the largest
+    scan's labelled points (frames/s; ``backproject_depth`` against the CPU
+    at the parity gate, ``nearest_instance``'s assignments equal to the
+    CPU's except at near ties, counted); ``projection.MultiViewFeatureExtractor``
+    over 60 colour frames at 960x540 for every instance (instances/s;
+    ``project_points`` pixels at rtol 1e-5 / atol 1e-4, visibility and crop
+    boxes equal away from a border or an integer, the exclusions counted,
+    the saved features equal to the CPU's); the OBJ colour transfer
+    (``uv_to_color`` on a texture array; ``load_rgb`` where PIL is
+    installed); ``clipsem.adapter_train.train_adapter`` at the real job's
+    shape (512-d features, the 160-class table, B=32, 4,745 validation and
+    35,603 train instances; 12 of the default 20 epochs, as 20 on the card
+    and again on the CPU took ~90 s; steps/s; the first 50 losses
+    equal to a CPU run's from the same weights at rtol 1e-4, the best top-1
+    within 0.5 points); ``python -m vlsat_tpu_torch.tools.run_full_pipeline``
+    in a subprocess (project, text, train, eval; the full-width registry
+    ``Mmgnet``, 1 epoch at B=8; the project stage in this process on the
+    decoded frames where a decode library is missing): each stage's wall
+    and launches, segment-max launched in the train and eval stages, the
+    eval stage's metrics equal to the same stage on the CPU from its
+    checkpoint, no tolerance; then ``tools.align_scans`` and
+    ``tools.zero_shot_analysis`` on its outputs.
 
 The last lines are a ``variants`` line (per model: evaluated
 scenes/s, wall ms per batch, trained scenes/s, step wall ms, peak memory,
 segment-max launches), an ``export`` line (export seconds a bucket, load
 seconds, artifact and ``.pt2`` bytes, scenes/s of both servers, dispatch
 microseconds), a ``data_parallel`` line (phase 14's checks, throughput
-and CLI run), a JSON ``kernels`` line (with each kernel's launches in
+and CLI run), an ``offline`` line (phase 15's rates, exclusions and stage
+walls), a JSON ``kernels`` line (with each kernel's launches in
 every phase), the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -2499,6 +2527,499 @@ def data_parallel(dev: torch.device) -> dict:
     return out
 
 
+OFFLINE_WORK = WORK.parent / "offline"
+OFFLINE_SCANS = 16         # data-feed scans of the pipeline run
+OFFLINE_FRAMES = 60        # depth and colour frames of the depth and projection checks
+DEPTH_HW = (172, 224)      # a 3RScan depth map (rows, cols)
+DEPTH_STRIDE = 8
+COLOR_HW = (540, 960)      # a 3RScan colour frame
+PIPE_FRAMES = 6            # colour frames a scan in the pipeline run
+ADAPTER_EPOCHS = 12        # of the trainer's default 20: 20 on the card and on the CPU
+                           # took ~90 s (NVIDIA H100 80GB HBM3, 700.00 W)
+DEPTH_REPS = 5             # timed passes over the depth frames (the median is kept)
+ADAPTER_BATCH = 32
+ADAPTER_GATE_STEPS = 50    # first step losses held against the CPU run
+
+
+def look_at(eye, target) -> np.ndarray:
+    """camera -> world pose of a camera at ``eye`` looking at ``target``
+    (x right, y down, z forward)."""
+    eye = np.asarray(eye, np.float64)
+    z = np.asarray(target, np.float64) - eye
+    z /= np.linalg.norm(z)
+    x = np.cross(z, [0.0, 0.0, 1.0])
+    x /= np.linalg.norm(x)
+    pose = np.eye(4)
+    pose[:3, :3] = np.stack([x, np.cross(z, x), z], axis=1)
+    pose[:3, 3] = eye
+    return pose
+
+
+def camera_rig(points: np.ndarray, n: int, radius: float = 12.0) -> list:
+    """``n`` camera -> world poses on a circle around the scan, looking at
+    its centre, at slightly varying heights."""
+    c = points.mean(0)
+    return [look_at(c + [radius * np.cos(a), radius * np.sin(a), 1.5 + 0.5 * np.sin(3 * a)], c)
+            for a in np.linspace(0, 2 * np.pi, n, endpoint=False)]
+
+
+def color_intrinsic() -> np.ndarray:
+    h, w = COLOR_HW
+    return np.asarray([[756.0, 0, w / 2, 0], [0, 756.0, h / 2, 0], [0, 0, 1, 0]], np.float32)
+
+
+def render_depth(points: np.ndarray, pose: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """A z-buffered depth map of ``points`` at DEPTH_HW (0 where nothing
+    projects), as a depth sensor would see the labelled mesh."""
+    h, w = DEPTH_HW
+    w2c = np.linalg.inv(pose)
+    cam = points @ w2c[:3, :3].T + w2c[:3, 3]
+    cam = cam[cam[:, 2] > 0.1]
+    uv = cam @ k.astype(np.float64).T
+    u = np.floor(uv[:, 0] / uv[:, 2]).astype(np.int64)
+    v = np.floor(uv[:, 1] / uv[:, 2]).astype(np.int64)
+    ok = (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    depth = np.full((h, w), np.inf)
+    np.minimum.at(depth, (v[ok], u[ok]), cam[ok, 2])
+    depth[np.isinf(depth)] = 0
+    return depth.astype(np.float32)
+
+
+def near_ties(queries: torch.Tensor, points: torch.Tensor, rel: float = 1e-6,
+              chunk: int = 2048) -> torch.Tensor:
+    """Queries whose two nearest squared distances differ by under ``rel``
+    relative (where two devices may pick either point)."""
+    out = []
+    for i in range(0, len(queries), chunk):
+        diff = queries[i:i + chunk, None, :] - points[None, :, :]
+        d2 = (diff * diff).sum(-1)
+        two = torch.topk(d2, 2, dim=1, largest=False).values
+        out.append((two[:, 1] - two[:, 0]) <= rel * two[:, 1])
+    return torch.cat(out)
+
+
+def offline_scans() -> tuple:
+    """(root, scans_root, multi_view_root) of OFFLINE_SCANS data-feed scans
+    laid out as ``<multi_view_root>/data/3RScan/<scan>``."""
+    from vlsat_tpu_torch.data.synthetic import make_synthetic_split, validation_scene_stats
+
+    nodes, rels = validation_scene_stats(OFFLINE_SCANS, seed=SEED + 15)
+    root, scans, _ = make_synthetic_split(
+        str(OFFLINE_WORK / "split"), num_scans=OFFLINE_SCANS, node_counts=nodes,
+        rel_counts=rels, vertices_per_inst=VERTS_PER_INST, seed=SEED + 15, write_ply=True,
+        background_verts=BG_VERTS)
+    mv_root = OFFLINE_WORK / "mv"
+    (mv_root / "data").mkdir(parents=True)
+    shutil.move(scans, mv_root / "data" / "3RScan")
+    return root, str(mv_root / "data" / "3RScan"), str(mv_root)
+
+
+def offline_depth(dev, pts: np.ndarray, inst: np.ndarray) -> dict:
+    """``visible_instances_per_frame`` on OFFLINE_FRAMES depth maps, the card
+    against the CPU."""
+    from vlsat_tpu_torch.preprocess.depth import (backproject_depth, nearest_instance,
+                                                  visible_instances_per_frame)
+
+    h, w = DEPTH_HW
+    k = np.asarray([[177.0, 0, w / 2], [0, 177.0, h / 2], [0, 0, 1]], np.float32)
+    poses = [p.astype(np.float32) for p in camera_rig(pts, OFFLINE_FRAMES)]
+    depths = [render_depth(pts, p, k) for p in poses]
+    visible_instances_per_frame(depths[:2], k, poses[:2], pts, inst, device=dev)  # warm-up
+    walls = []
+    for _ in range(DEPTH_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vis = visible_instances_per_frame(depths, k, poses, pts, inst, stride=DEPTH_STRIDE,
+                                          device=dev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    secs = float(np.median(walls))
+    vis_cpu = visible_instances_per_frame(depths, k, poses, pts, inst, stride=DEPTH_STRIDE,
+                                          device="cpu")
+    # the back-projection at the parity gate, and the assignments of every query
+    k_sub = k.copy()
+    k_sub[:2] /= DEPTH_STRIDE
+    queries, worst = [], 0.0
+    for d, p in zip(depths, poses):
+        ds = np.ascontiguousarray(d[::DEPTH_STRIDE, ::DEPTH_STRIDE])
+        args = [torch.from_numpy(a) for a in (ds, k_sub, p)]
+        got = backproject_depth(*[a.to(dev) for a in args]).cpu()
+        want = backproject_depth(*args)
+        if not torch.allclose(got, want, rtol=1e-3, atol=1e-4):
+            fail(f"offline, depth: backproject_depth differs from the CPU run by "
+                 f"{(got - want).abs().max().item()}")
+        worst = max(worst, (got - want).abs().max().item())
+        queries.append(got[torch.from_numpy(ds.reshape(-1) > 0)])
+    q = torch.cat(queries).numpy()
+    got = nearest_instance(q, pts, inst, device=dev)
+    want = nearest_instance(q, pts, inst, device="cpu")
+    ties = near_ties(torch.from_numpy(q).to(dev), torch.from_numpy(pts).to(dev)).cpu().numpy()
+    bad = (got != want) & ~ties
+    if bad.any():
+        fail(f"offline, depth: {int(bad.sum())} of {len(q)} nearest-instance assignments "
+             f"differ from the CPU run away from a near tie")
+    if (got != want).sum() == 0 and vis != vis_cpu:
+        fail("offline, depth: the visible-instance lists differ from the CPU run")
+    if not any(vis.values()):
+        fail("offline, depth: no frame saw an instance")
+    return {"frames": len(depths), "depth_hw": list(DEPTH_HW), "stride": DEPTH_STRIDE,
+            "labelled_points": int(len(pts)), "queries": int(len(q)),
+            "frames_per_sec": len(depths) / secs, "wall_s": secs,
+            "frames_per_sec_range": [len(depths) / max(walls), len(depths) / min(walls)],
+            "backproject_max_abs_diff": worst,
+            "assignments_differing": int((got != want).sum()), "near_tie_queries": int(ties.sum()),
+            "visible_pairs": int(sum(map(len, vis.values()))), "lists_equal": vis == vis_cpu}
+
+
+def offline_projection(dev, pts: np.ndarray, inst: np.ndarray, names: dict) -> dict:
+    """``process_scene`` over OFFLINE_FRAMES colour frames for every instance
+    of the scan, the card against the CPU."""
+    from vlsat_tpu_torch.projection import MultiViewFeatureExtractor, project_points
+    from vlsat_tpu_torch.tools.run_full_pipeline import hash_image_encoder
+
+    h, w = COLOR_HW
+    rng = np.random.RandomState(SEED + 16)
+    images = [rng.randint(0, 255, (h, w, 3), dtype=np.uint8) for _ in range(OFFLINE_FRAMES)]
+    extr = np.stack([np.linalg.inv(p) for p in camera_rig(pts, OFFLINE_FRAMES)]).astype(np.float32)
+    intr = color_intrinsic()
+    # project_points per instance: pix at rtol 1e-5 / atol 1e-4; visibility and
+    # crop boxes equal away from a border and from an integer
+    e_c, i_c = torch.from_numpy(extr).to(dev), torch.from_numpy(intr).to(dev)
+    excluded_points = excluded_boxes = boxes = 0
+    unsure = set()
+    for iid in names:
+        p = torch.from_numpy(pts[inst == iid])
+        pix, vis = (t.cpu() for t in project_points(p.to(dev), e_c, i_c, w, h))
+        pix_h, vis_h = project_points(p, torch.from_numpy(extr), torch.from_numpy(intr), w, h)
+        if not torch.allclose(pix, pix_h, rtol=1e-5, atol=1e-4, equal_nan=True):
+            fail(f"offline, projection: instance {iid} pix differ from the CPU run by "
+                 f"{(pix - pix_h).abs().nan_to_num().max().item()}")
+        u, v = pix_h[..., 0], pix_h[..., 1]
+        border = ((u.abs() < 1e-3) | ((u - w).abs() < 1e-3) | (v.abs() < 1e-3)
+                  | ((v - h).abs() < 1e-3))
+        if ((vis != vis_h) & ~border).any():
+            fail(f"offline, projection: instance {iid} visibility differs off the borders")
+        excluded_points += int(border.sum())
+        for f in range(len(extr)):
+            if not (vis[f].any() or vis_h[f].any()):
+                continue
+            boxes += 1
+            a, b = pix[f][vis[f]], pix_h[f][vis_h[f]]
+            ext = torch.stack([b.min(0).values, b.max(0).values]) if len(b) else b
+            near_int = (ext - ext.round()).abs() < 1e-3
+            if len(a) == 0 or len(b) == 0 or (vis[f] != vis_h[f]).any() or near_int.any():
+                excluded_boxes += 1
+                unsure.add(iid)
+                continue
+            if [int(x) for x in torch.cat([a.min(0).values, a.max(0).values])] != \
+                    [int(x) for x in torch.cat([b.min(0).values, b.max(0).values])]:
+                fail(f"offline, projection: instance {iid} frame {f} crop box differs")
+    ex = MultiViewFeatureExtractor(hash_image_encoder, device=dev)
+    ex.process_scene(pts, inst, dict(list(names.items())[:1]), images, extr, intr, {}, w, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = ex.process_scene(pts, inst, names, images, extr, intr, {}, w, h)
+    secs = time.perf_counter() - t0
+    cpu = MultiViewFeatureExtractor(hash_image_encoder, device="cpu").process_scene(
+        pts, inst, names, images, extr, intr, {}, w, h)
+    if sorted(feats) != sorted(cpu) or len(feats) != len(names):
+        fail(f"offline, projection: instances {sorted(feats)} against the CPU's {sorted(cpu)}")
+    differing = [i for i in feats if not np.array_equal(feats[i], cpu[i])]
+    if set(differing) - unsure:
+        fail(f"offline, projection: features of instances {differing} differ from the CPU's")
+    return {"frames": len(images), "color_hw": list(COLOR_HW), "instances": len(feats),
+            "instances_per_sec": len(feats) / secs, "wall_s": secs,
+            "boxes_checked": boxes, "excluded_points_near_border": excluded_points,
+            "excluded_boxes_near_integer": excluded_boxes, "features_differing": len(differing)}
+
+
+def offline_colour(pts: np.ndarray, inst: np.ndarray, decoders: dict) -> dict:
+    """The OBJ colour transfer of the scan's label mesh from a seeded
+    texture: ``uv_to_color`` on the decoded texture array, and, where PIL is
+    installed, ``load_rgb``'s textured-OBJ route reading the same texture
+    from a PNG file (colours equal)."""
+    from vlsat_tpu_torch.data.obj import (LABEL_FILE_NAME, LABEL_FILE_NAME_RAW, MTL_NAME,
+                                          OBJ_NAME, load_rgb, uv_to_color)
+    from vlsat_tpu_torch.data.ply import write_ply_vertices
+
+    rng = np.random.RandomState(SEED + 17)
+    tex = rng.randint(0, 255, (1024, 1024, 3), dtype=np.uint8)
+    uv = rng.rand(len(pts), 2).astype(np.float32)  # an OBJ's vt lines parse to float32
+    t0 = time.perf_counter()
+    colors = uv_to_color(uv, tex)
+    out = {"vertices": int(len(pts)), "uv_to_color_s": time.perf_counter() - t0}
+    if not decoders["PIL"]:
+        return out
+    from PIL import Image
+
+    d = OFFLINE_WORK / "textured"
+    d.mkdir(parents=True)
+    Image.fromarray(tex).save(d / "texture.png")
+    (d / MTL_NAME).write_text("newmtl m\nmap_Kd texture.png\n")
+    lines = ["mtllib " + MTL_NAME]
+    lines += [f"v {x!r} {y!r} {z!r}" for x, y, z in pts.astype(np.float64).tolist()]
+    lines += [f"vt {a!r} {b!r}" for a, b in uv.astype(np.float64).tolist()]
+    lines += [f"f {i}/{i} {i + 1}/{i + 1} {i + 2}/{i + 2}" for i in range(1, len(pts) - 1)]
+    (d / OBJ_NAME).write_text("\n".join(lines) + "\n")
+    write_ply_vertices(str(d / LABEL_FILE_NAME_RAW), pts, instances=inst)
+    write_ply_vertices(str(d / LABEL_FILE_NAME), pts + 1.0, instances=inst)
+    t0 = time.perf_counter()
+    mesh = load_rgb(str(d), max_dist=1e-5)
+    out["load_rgb_s"] = time.perf_counter() - t0
+    if not np.array_equal(mesh.colors, colors):
+        fail("offline, colour: load_rgb's colours differ from uv_to_color on the array")
+    return out
+
+
+def adapter_inputs() -> dict:
+    """The adapter job's shape: 512-d features, the 160-class table, the
+    validation split's instances (relationships_validation.json) and the
+    train split's count scaled by its scans; features drawn from a seed
+    around one centre a class."""
+    from vlsat_tpu_torch.clipsem import HashTextEncoder, build_label_tables
+    from vlsat_tpu_torch.data.assets import read_classes, read_txt_lines
+
+    assets = Path(__file__).resolve().parent / "assets" / "3dssg"
+    classes = read_classes(str(assets))
+    table, _ = build_label_tables(classes, read_txt_lines(str(assets / "relations.txt")),
+                                  HashTextEncoder())
+    with open(assets / "relationships_validation.json") as f:
+        val_names = [n for s in json.load(f)["scans"] for n in s["objects"].values()]
+    val_labels = np.asarray([classes.index(n) for n in val_names])
+    scale = (len(read_txt_lines(str(assets / "train_scans.txt")))
+             / len(read_txt_lines(str(assets / "validation_scans.txt"))))
+    rng = np.random.RandomState(SEED + 18)
+    train_labels = rng.choice(val_labels, int(round(len(val_labels) * scale)))
+    centers = rng.randn(len(classes), 512).astype(np.float32)
+
+    def draw(labels):
+        x = centers[labels] + rng.randn(len(labels), 512).astype(np.float32) * 1.2
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    init = {name: {"kernel": (rng.randn(i, o) / np.sqrt(i)).astype(np.float32),
+                   "bias": np.zeros(o, np.float32)}
+            for name, i, o in (("fc1", 512, 256), ("fc2", 256, 512))}
+    return {"train": (draw(train_labels), train_labels), "val": (draw(val_labels), val_labels),
+            "table": table, "init": init}
+
+
+def offline_adapter(dev) -> dict:
+    """``train_adapter`` at the real job's shape on the card, against a CPU
+    run from the same initial weights."""
+    from vlsat_tpu_torch.clipsem.adapter_train import train_adapter
+
+    inp = adapter_inputs()
+    (tf, tl), (vf, vl) = inp["train"], inp["val"]
+    kw = dict(epochs=ADAPTER_EPOCHS, batch_size=ADAPTER_BATCH, init_params=inp["init"])
+    hist = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, top1 = train_adapter(tf, tl, vf, vl, inp["table"], device=dev, history=hist, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    hist_cpu = {}
+    t0 = time.perf_counter()
+    _, top1_cpu = train_adapter(tf, tl, vf, vl, inp["table"], device="cpu", history=hist_cpu, **kw)
+    cpu_secs = time.perf_counter() - t0
+    got = torch.stack(hist["loss"][:ADAPTER_GATE_STEPS]).cpu().numpy()
+    want = torch.stack(hist_cpu["loss"][:ADAPTER_GATE_STEPS]).numpy()
+    if not np.allclose(got, want, rtol=1e-4, atol=0):
+        fail(f"offline, adapter: the first {ADAPTER_GATE_STEPS} losses differ from the CPU "
+             f"run by {np.abs(got / want - 1).max()} relative")
+    if abs(top1 - top1_cpu) > 0.5:
+        fail(f"offline, adapter: best top-1 {top1} against the CPU's {top1_cpu}")
+    steps = len(hist["loss"])
+    return {"train": int(len(tf)), "validation": int(len(vf)), "classes": int(len(inp["table"])),
+            "batch": ADAPTER_BATCH, "epochs": ADAPTER_EPOCHS, "steps": steps,
+            "steps_per_sec": steps / secs, "wall_s": secs, "cpu_wall_s": cpu_secs,
+            "best_top1": top1, "best_top1_cpu": top1_cpu, "top1_per_epoch": hist["top1"],
+            "first_losses_max_rel_diff": float(np.abs(got / want - 1).max())}
+
+
+def write_sequences(scans_root: str, decoders: dict) -> dict:
+    """PIPE_FRAMES colour frames and ``sequence/frames.json`` for every scan;
+    the frames go to PNG files where PIL and imageio are installed, and are
+    returned by path (for an in-process project stage) otherwise."""
+    from vlsat_tpu_torch.data.ply import read_ply_vertices
+
+    h, w = COLOR_HW
+    rng = np.random.RandomState(SEED + 19)
+    files = decoders["PIL"] and decoders["imageio"]
+    frames = {}
+    for scan in sorted(os.listdir(scans_root)):
+        d = Path(scans_root) / scan
+        pts = read_ply_vertices(str(d / "labels.instances.align.annotated.v2.ply")).points
+        (d / "sequence").mkdir()
+        meta = []
+        for f, pose in enumerate(camera_rig(pts, PIPE_FRAMES)):
+            name = f"frame-{f:06d}.color.png"
+            img = rng.randint(0, 255, (h, w, 3), dtype=np.uint8)
+            if files:
+                from PIL import Image
+
+                Image.fromarray(img).save(d / "sequence" / name)
+            frames[str(d / "sequence" / name)] = img
+            meta.append({"color": name, "extrinsic": np.linalg.inv(pose).tolist()})
+        (d / "sequence" / "frames.json").write_text(json.dumps({
+            "frames": meta, "intrinsic": color_intrinsic().tolist(), "width": w, "height": h}))
+    return frames
+
+
+def result_metrics(out_dir: Path) -> dict:
+    text = (out_dir / "results" / "Mmgnet" / "default" / "result.txt").read_text()
+    return dict(line[len("Eval: "):].rsplit(": ", 1) for line in text.splitlines())
+
+
+def offline_pipeline(dev, root: str, scans_root: str, mv_root: str, decoders: dict) -> dict:
+    """``python -m vlsat_tpu_torch.tools.run_full_pipeline`` on the card
+    (project, text, train, eval), the eval stage again on the CPU from its
+    checkpoint, then ``align_scans`` and ``zero_shot_analysis`` on its outputs."""
+    from vlsat_tpu_torch.tools import run_full_pipeline as pipeline
+    from vlsat_tpu_torch.tools.align_scans import main as align_scans
+    from vlsat_tpu_torch.tools.zero_shot_analysis import main as zero_shot
+
+    here = Path(__file__).resolve().parent
+    frames = write_sequences(scans_root, decoders)
+    cfg_path = OFFLINE_WORK / "cfg.json"
+    cfg_path.write_text(json.dumps({
+        "NAME": "Mmgnet", "SEED": SEED, "Batch_Size": TRAIN_BATCH, "MAX_EPOCHES": 1,
+        "VALID_INTERVAL": 1, "LOG_INTERVAL": 1, "EVAL_BATCH_SIZE": TRAIN_BATCH}))
+    out_dir = OFFLINE_WORK / "out"
+    argv = ["--root", root, "--scans-root", scans_root, "--multi-view-root", mv_root,
+            "--out", str(out_dir), "--config", str(cfg_path), "--encoder", "hash"]
+    res = {"frames_on_disk": bool(decoders["PIL"] and decoders["imageio"])}
+    stages = "project,text,train,eval"
+    if not res["frames_on_disk"]:  # the project stage's body on the decoded arrays
+        t0 = time.perf_counter()
+        pipeline.stage_project(pipeline.parse_args(argv + ["--stages", "project"]),
+                               read=frames.__getitem__)
+        res["project_in_process_s"] = time.perf_counter() - t0
+        stages = "text,train,eval"
+    reset_launches()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vlsat_tpu_torch.tools.run_full_pipeline",
+                           *argv, "--stages", stages], cwd=here, capture_output=True, text=True,
+                          timeout=600)
+    res["command_s"] = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"offline, pipeline: run_full_pipeline exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{"stage"')]
+    res["stages"] = {r["stage"]: {"wall_s": r["wall_s"], **r["kernel_launches"]} for r in rows}
+    if [r["stage"] for r in rows] != stages.split(","):
+        fail(f"offline, pipeline: stages {[r['stage'] for r in rows]}")
+    if res["stages"]["eval"]["segment_max"] <= 0 or res["stages"]["train"]["segment_max"] <= 0:
+        fail(f"offline, pipeline: segment-max launches {res['stages']}")
+    n_mv = sum(len(os.listdir(Path(scans_root) / s / "multi_view"))
+               for s in os.listdir(scans_root))
+    res["feature_files"] = n_mv
+    card = result_metrics(out_dir)
+    # the eval stage on the CPU, from the card run's checkpoint and text tables
+    cpu_out = OFFLINE_WORK / "out_cpu"
+    shutil.copytree(out_dir, cpu_out, ignore=shutil.ignore_patterns("results", "logs"))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        pipeline.main([*argv[:6], "--out", str(cpu_out), *argv[8:], "--stages", "eval",
+                       "--device", "cpu"])
+    res["cpu_eval_s"] = time.perf_counter() - t0
+    cpu = result_metrics(cpu_out)
+    if card != cpu:
+        diff = sorted(k for k in set(card) | set(cpu) if card.get(k) != cpu.get(k))
+        fail(f"offline, pipeline: eval metrics differ from the CPU run's: {diff}")
+    res["metrics"] = len(card)
+    res["mean_recall_50"] = float(card.get("mean_recall_50", "nan"))
+    # align_scans (rescans by their transform, references copied) and zero_shot_analysis
+    scans = sorted(os.listdir(scans_root))
+    mats = {s: np.eye(4) for s in scans[:OFFLINE_SCANS // 2]}
+    for m in mats.values():
+        m[3, :3] = [0.5, -1.0, 0.25]
+    (OFFLINE_WORK / "3RScan.json").write_text(json.dumps([{"scans": [
+        {"reference": s, "transform": m.reshape(-1).tolist()} for s, m in mats.items()]}]))
+    (OFFLINE_WORK / "rescans.txt").write_text("\n".join(mats))
+    (OFFLINE_WORK / "refs.txt").write_text("\n".join(scans[OFFLINE_SCANS // 2:]))
+    with contextlib.redirect_stdout(io.StringIO()):
+        n = align_scans(["--scans-root", scans_root, "--scan3r-json",
+                         str(OFFLINE_WORK / "3RScan.json"), "--rescans",
+                         str(OFFLINE_WORK / "rescans.txt"), "--references",
+                         str(OFFLINE_WORK / "refs.txt"),
+                         "--raw-name", "labels.instances.align.annotated.v2.ply",
+                         "--out-name", "labels.realigned.ply"])
+    from vlsat_tpu_torch.data.ply import read_ply_vertices
+
+    for s in scans:
+        a = read_ply_vertices(str(Path(scans_root) / s / "labels.instances.align.annotated.v2.ply"))
+        b = read_ply_vertices(str(Path(scans_root) / s / "labels.realigned.ply"))
+        want = a.points + (np.float32([0.5, -1.0, 0.25]) if s in mats else 0)
+        if n != len(scans) or not np.allclose(b.points, want, atol=1e-5) or \
+                not np.array_equal(a.instances, b.instances):
+            fail(f"offline, align_scans: scan {s} ({n} written)")
+    with contextlib.redirect_stdout(io.StringIO()):
+        zs = zero_shot([
+            "--results", str(out_dir / "results" / "Mmgnet" / "default"), "--root", root])
+    if not zs or not all(np.isfinite(v) or np.isnan(v) for v in zs.values()):
+        fail(f"offline, zero_shot_analysis: {zs}")
+    res["aligned_scans"] = n
+    res["zero_shot"] = {k: None if np.isnan(v) else v for k, v in zs.items()}
+    return res
+
+
+def offline(dev) -> dict:
+    """Phase 15: the offline path on the card."""
+    import importlib.util
+
+    from vlsat_tpu_torch.data.assets import build_index
+    from vlsat_tpu_torch.data.ply import read_ply_vertices
+
+    decoders = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "imageio")}
+    routes = {"PIL": "load_rgb's textured-OBJ route and load_pc_views (texture and view files)",
+              "imageio": "run_full_pipeline's project stage reading colour frame files"}
+    missing = [f"{m}: {routes[m]}" for m, ok in decoders.items() if not ok]
+    log("offline: decode libraries " + json.dumps(decoders) + (
+        "; file-decode routes not run on this host (the CPU tests run them; the same "
+        "functions take decoded arrays here): " + "; ".join(missing) if missing else ""))
+    shutil.rmtree(OFFLINE_WORK, ignore_errors=True)
+    OFFLINE_WORK.mkdir(parents=True)
+    out = {"decoders": decoders}
+    t0 = time.perf_counter()
+    root, scans_root, mv_root = offline_scans()
+    index = build_index(root, "validation_scans")
+    sizes = {a.scan: os.path.getsize(Path(scans_root) / a.scan
+                                     / "labels.instances.align.annotated.v2.ply")
+             for a in index.scenes}
+    ann = next(a for a in index.scenes if a.scan == max(sizes, key=sizes.get))
+    ply = read_ply_vertices(str(Path(scans_root) / ann.scan
+                                / "labels.instances.align.annotated.v2.ply"))
+    pts, inst = ply.points.astype(np.float32), ply.instances.astype(np.int32)
+    out["setup_s"] = time.perf_counter() - t0
+    reset_launches()
+    out["depth"] = offline_depth(dev, pts, inst)
+    log(f"offline, depth: {out['depth']['frames_per_sec']:.1f} frames/s (median of {DEPTH_REPS}) "
+        f"({out['depth']['frames']} frames at {DEPTH_HW[1]}x{DEPTH_HW[0]}, stride "
+        f"{DEPTH_STRIDE}, {len(pts)} labelled points); {out['depth']['near_tie_queries']} "
+        f"near-tie queries, {out['depth']['assignments_differing']} assignments differ")
+    out["projection"] = offline_projection(dev, pts, inst, ann.objects)
+    log(f"offline, projection: {out['projection']['instances_per_sec']:.2f} instances/s "
+        f"({out['projection']['frames']} frames at {COLOR_HW[1]}x{COLOR_HW[0]}); excluded "
+        f"{out['projection']['excluded_points_near_border']} points near a border, "
+        f"{out['projection']['excluded_boxes_near_integer']} of "
+        f"{out['projection']['boxes_checked']} boxes near an integer")
+    out["colour"] = offline_colour(pts, inst, decoders)
+    out["adapter"] = offline_adapter(dev)
+    log(f"offline, adapter: {out['adapter']['steps_per_sec']:.1f} steps/s, {ADAPTER_EPOCHS} "
+        f"epochs (cut from the default 20 to keep the phase short) in "
+        f"{out['adapter']['wall_s']:.1f} s; best top-1 {out['adapter']['best_top1']:.2f} "
+        f"(CPU {out['adapter']['best_top1_cpu']:.2f})")
+    out["pipeline"] = offline_pipeline(dev, root, scans_root, mv_root, decoders)
+    log("offline, pipeline: stage walls " + json.dumps(
+        {k: round(v["wall_s"], 2) for k, v in out["pipeline"]["stages"].items()}))
+    launches = read_launches()
+    for name, stage in (("segment_max", "segment_max"), ("pointnet_fused", "pointnet")):
+        launches[name] += sum(s[stage] for s in out["pipeline"]["stages"].values())
+    out["launches"] = launches
+    shutil.rmtree(OFFLINE_WORK, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs an NVIDIA card")
@@ -2627,6 +3148,11 @@ def main() -> None:
     for k in kernels:
         k["launches_data_parallel"] = dp["launches"].get(k["name"], 0)
     log(json.dumps({"data_parallel": dp}))
+    # 15. the offline path
+    off = offline(dev)
+    for k in kernels:
+        k["launches_offline"] = off["launches"].get(k["name"], 0)
+    log(json.dumps({"offline": off}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -736,3 +736,67 @@ def test_data_parallel_two_ranks_on_one_card_equal_one_process(dev, tmp_path):
         diff = float(np.abs(res["state"][k] - w).max()) if w.size else 0.0
         upd = float(np.abs(w - initial[k].numpy()).max()) if w.size else 0.0
         assert diff <= max(5e-5, 1e-2 * upd), (k, diff, upd)
+
+
+def test_offline_projection_and_depth_on_card_equal_cpu(dev):
+    """``project_points`` (both intrinsic ranks), ``backproject_depth`` and
+    ``nearest_instance`` on the card against the CPU: pixels at rtol 1e-5 /
+    atol 1e-4, visibility equal off the image borders, back-projection at
+    the parity gate, instance assignments equal (the same elementwise
+    arithmetic on both)."""
+    from vlsat_tpu_torch.preprocess.depth import backproject_depth, nearest_instance
+    from vlsat_tpu_torch.projection import project_points
+
+    rng = np.random.RandomState(0)
+    pts = torch.from_numpy((rng.rand(3000, 3) * [4, 3, 2] + [-2, -1.5, 1]).astype(np.float32))
+    ext = torch.from_numpy(np.tile(np.eye(4, dtype=np.float32), (6, 1, 1)))
+    ext[:, 0, 3] = torch.linspace(-1, 1, 6)
+    k = torch.tensor([[756.0, 0, 480, 0], [0, 756.0, 270, 0], [0, 0, 1, 0]])
+    for intr in (k, k.expand(6, 3, 4).contiguous()):
+        pix, vis = project_points(pts.to(dev), ext.to(dev), intr.to(dev), 960, 540)
+        pix_h, vis_h = project_points(pts, ext, intr, 960, 540)
+        assert torch.allclose(pix.cpu(), pix_h, rtol=1e-5, atol=1e-4)
+        u, v = pix_h[..., 0], pix_h[..., 1]
+        border = (u.abs() < 1e-3) | ((u - 960).abs() < 1e-3) | (v.abs() < 1e-3) | \
+            ((v - 540).abs() < 1e-3)
+        assert torch.equal(vis.cpu()[~border], vis_h[~border]) and vis_h.any()
+    depth = torch.from_numpy((rng.rand(22, 28) * 5).astype(np.float32))
+    depth[::3] = 0
+    kd = torch.tensor([[22.0, 0, 14], [0, 22.0, 11], [0, 0, 1]])
+    pose = torch.eye(4)
+    pose[:3, 3] = torch.tensor([0.5, -0.2, 0.1])
+    world = backproject_depth(depth.to(dev), kd.to(dev), pose.to(dev)).cpu()
+    assert torch.allclose(world, backproject_depth(depth, kd, pose), rtol=1e-3, atol=1e-4)
+    labels = rng.randint(1, 9, len(pts)).astype(np.int32)
+    q = world.numpy()[depth.reshape(-1).numpy() > 0]
+    got = nearest_instance(q, pts.numpy(), labels, max_dist=0.3, chunk=200, device=dev)
+    np.testing.assert_array_equal(got, nearest_instance(q, pts.numpy(), labels, max_dist=0.3,
+                                                        chunk=200, device="cpu"))
+    assert (got != 0).any() and (got == 0).any()
+
+
+def test_adapter_steps_on_card_equal_cpu(dev):
+    """Ten ``train_adapter`` steps (512-d, 160 classes, B=32) on the card
+    against the CPU from the same initial weights: losses rtol 1e-4, the
+    weights within 1e-5."""
+    from vlsat_tpu_torch.clipsem.adapter_train import train_adapter
+
+    rng = np.random.RandomState(1)
+    labels = rng.randint(0, 160, 320)
+    feats = rng.randn(320, 512).astype(np.float32)
+    table = rng.randn(160, 512).astype(np.float32)
+    table /= np.linalg.norm(table, axis=-1, keepdims=True)
+    init = {n: {"kernel": (rng.randn(i, o) / np.sqrt(i)).astype(np.float32),
+                "bias": np.zeros(o, np.float32)} for n, i, o in (("fc1", 512, 256),
+                                                                 ("fc2", 256, 512))}
+    runs = []
+    for device in (dev, "cpu"):
+        hist = {}
+        params, top1 = train_adapter(feats, labels, feats[:64], labels[:64], table, epochs=1,
+                                     init_params=init, device=device, history=hist)
+        runs.append((params, top1, torch.stack(hist["loss"]).cpu().numpy()))
+    (p_card, t_card, l_card), (p_cpu, t_cpu, l_cpu) = runs
+    assert len(l_card) == 10
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
+    for layer in ("fc1", "fc2"):
+        np.testing.assert_allclose(p_card[layer]["kernel"], p_cpu[layer]["kernel"], atol=1e-5)

@@ -117,8 +117,9 @@ def test_bench_server_reports_rates():
 def test_port_imports_without_jax():
     """With jax, flax and vlsat_tpu blocked, every module of the port
     imports (the walk reaches the eval/, train/, utils/, config/, native/,
-    data/, clipsem/ and tools/ modules, the data feed's, the runner's, the
-    CLI's, the SGGpoint family's and the export modules included),
+    data/, clipsem/, preprocess/, projection/ and tools/ modules, the data
+    feed's, the runner's, the CLI's, the SGGpoint family's, the export and
+    the offline modules included),
     serves a scene, evaluates two synthetic batches, takes two train
     steps with a checkpoint, and trains one epoch through the CLI
     (``main --mode train --device cpu``) on a synthetic split, on the CPU."""
@@ -140,7 +141,11 @@ for name in ("eval.engine", "eval.metrics", "eval.recall", "data.pipeline", "dat
              "clipsem.prompts", "clipsem.text_tables", "utils.logging",
              "tools.pack_dataset", "models.variants", "models.mmteacher",
              "interop.torch_import", "ops.dgcnn", "ops.gcn", "models.stn",
-             "models.sggpoint", "serving_export", "utils.export", "utils.profiling"):
+             "models.sggpoint", "serving_export", "utils.export", "utils.profiling",
+             "preprocess.depth", "preprocess.transform", "preprocess.gen_data",
+             "projection.multiview", "data.obj", "clipsem.adapter_train",
+             "tools.build_multiview_features", "tools.align_scans", "tools.zero_shot_analysis",
+             "tools.build_text_tables", "tools.run_full_pipeline"):
     assert "vlsat_tpu_torch." + name in walked, name
 from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
 from vlsat_tpu_torch.serving import BatchedServer

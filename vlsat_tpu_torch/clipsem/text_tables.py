@@ -35,6 +35,12 @@ from vlsat_tpu_torch.clipsem.prompts import (
 TextEncoder = Callable[[List[str]], np.ndarray]
 
 
+# The CLIP encoders (``--encoder hf``) wait for their files to be in the repository.
+HF_MISSING = ("--encoder hf needs the `transformers` package and the CLIP ViT-B/32 weights "
+              "(openai/clip-vit-base-patch32), which are not in the repository yet; "
+              "use --encoder hash")
+
+
 class HashTextEncoder:
     """Deterministic stand-in encoder: a unit-norm gaussian per sentence,
     seeded from the first 4 bytes of its SHA-256."""

@@ -146,7 +146,8 @@ def train_state_from_flax(params: Mapping, batch_stats: Mapping, opt_state: Any,
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
                        ) -> Tuple[Dict, Dict]:
     """The inverse of :func:`flax_to_state_dict` over every parameter:
-    returns (params, batch_stats) as nested dicts of numpy arrays."""
+    returns (params, batch_stats) as nested dicts of numpy arrays (copies:
+    later updates of the tensors do not reach them)."""
     params: Dict = {}
     stats: Dict = {}
     stat_names = {v: k for k, v in _STAT_LEAF.items()}
@@ -158,7 +159,7 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
         tree[leaf] = arr
 
     for key, t in state_dict.items():
-        arr = t.detach().cpu().numpy()
+        arr = t.detach().cpu().numpy().copy()  # a CPU tensor's numpy() shares its storage
         mod, _, leaf = key.rpartition(".")
         mod = mod.replace(".", "/")
         prefix = mod + "/" if mod else ""
