@@ -147,9 +147,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     work directories are removed at its end;
 15. the offline path, on 16 data-feed scans (the node and relation counts
     of the 3DSSG validation split) laid out as ``<root>/data/3RScan/<scan>``,
-    with seeded camera rigs around each scan: which decode libraries
-    (PIL, imageio) the host has, and which file-decode routes therefore
-    run on decoded arrays instead; ``preprocess.depth.visible_instances_per_frame``
+    with seeded camera rigs around each scan (PIL decodes every texture,
+    view and colour frame file; the phase fails without it);
+    ``preprocess.depth.visible_instances_per_frame``
     over 60 rendered 224x172 depth maps at stride 8 against the largest
     scan's labelled points (frames/s; ``backproject_depth`` against the CPU
     at the parity gate, ``nearest_instance``'s assignments equal to the
@@ -161,17 +161,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (``uv_to_color`` on a texture array; ``load_rgb`` where PIL is
     installed); ``clipsem.adapter_train.train_adapter`` at the real job's
     shape (512-d features, the 160-class table, B=32, 4,745 validation and
-    35,603 train instances; 12 of the default 20 epochs, as 20 on the card
-    and again on the CPU took ~90 s; steps/s; the first 50 losses
+    35,603 train instances; 4 of the default 20 epochs, to keep the script
+    well inside its time limit (12 took 34.0 s on the card and 41.5 s on
+    the CPU); steps/s; the first 50 losses
     equal to a CPU run's from the same weights at rtol 1e-4, the best top-1
     within 0.5 points); ``python -m vlsat_tpu_torch.tools.run_full_pipeline``
     in a subprocess (project, text, train, eval; the full-width registry
-    ``Mmgnet``, 1 epoch at B=8; the project stage in this process on the
-    decoded frames where a decode library is missing): each stage's wall
-    and launches, segment-max launched in the train and eval stages, the
-    eval stage's metrics equal to the same stage on the CPU from its
-    checkpoint, no tolerance; then ``tools.align_scans`` and
-    ``tools.zero_shot_analysis`` on its outputs.
+    ``Mmgnet``, 1 epoch at B=8; frames decoded from PNG files): each
+    stage's wall and launches, segment-max launched in the train and eval
+    stages, the eval stage's metrics equal to the same stage on the CPU
+    from its checkpoint, no tolerance; then ``tools.align_scans`` and
+    ``tools.zero_shot_analysis`` on its outputs;
+16. the serving and operations tools: ``vlsat_tpu_torch.tools.serve``'s
+    ``main`` in this process at full width (``MMGNetConfig()``, fused
+    PointNet off as in the JAX tool) with ``--max-batch 32 --clients 64
+    --duration 4 --http --naive`` (batched, HTTP and naive scenes/s, p50 /
+    p99; segment-max launched, PointNet not, counters at 0 just before),
+    four pool scenes answered by the tool's server held against a CPU
+    server on the same weights at the model gate, ``--export-artifact``
+    then ``--artifact`` (scenes/s from the artifact), and ``--sweep
+    --sweep-clients 1 4 16 64 --duration 2`` (curve, knee, operating
+    point); ``tools.parity_eval`` on a seeded full-width reference ``.pth``
+    directory and a labelled PLY split of its own: once with ``--device
+    cpu``, whose metrics become a ``result.txt`` in the reference's
+    format, then on the card against it (exit 0, verdict YES, segment-max
+    launched 4 times an evaluated batch, the largest card-against-CPU
+    metric difference); ``tools.soak`` in a subprocess with ``--num-scans
+    1177 --epochs 4 --kill-epoch 3 --valid-interval 2 --batch-size 8``
+    (cut from the JAX defaults of 20 epochs, a kill at 12 and validation
+    every 5): the child SIGKILLed in epoch 3, phase B at rc 0, resumed
+    within one epoch of the kill, the fourth epoch last, every validation
+    metric finite; dataset build, phase walls, train scenes/s, peak RSS
+    and card memory (the training child's launches are its own process's
+    and are not counted here).
 
 The last lines are a ``variants`` line (per model: evaluated
 scenes/s, wall ms per batch, trained scenes/s, step wall ms, peak memory,
@@ -179,8 +201,9 @@ segment-max launches), an ``export`` line (export seconds a bucket, load
 seconds, artifact and ``.pt2`` bytes, scenes/s of both servers, dispatch
 microseconds), a ``data_parallel`` line (phase 14's checks, throughput
 and CLI run), an ``offline`` line (phase 15's rates, exclusions and stage
-walls), a JSON ``kernels`` line (with each kernel's launches in
-every phase), the card's name and power limit as nvidia-smi reports them,
+walls), a ``tools`` line (phase 16's rates, checks and cuts), a
+``phase_wall_s`` line, a JSON ``kernels`` line (with each kernel's
+launches in every phase), the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``.
 """
 
@@ -2534,8 +2557,8 @@ DEPTH_HW = (172, 224)      # a 3RScan depth map (rows, cols)
 DEPTH_STRIDE = 8
 COLOR_HW = (540, 960)      # a 3RScan colour frame
 PIPE_FRAMES = 6            # colour frames a scan in the pipeline run
-ADAPTER_EPOCHS = 12        # of the trainer's default 20: 20 on the card and on the CPU
-                           # took ~90 s (NVIDIA H100 80GB HBM3, 700.00 W)
+ADAPTER_EPOCHS = 4         # of the trainer's default 20: 12 took 34.0 s on the card and
+                           # 41.5 s on the CPU (NVIDIA H100 80GB HBM3, 700.00 W)
 DEPTH_REPS = 5             # timed passes over the depth frames (the median is kept)
 ADAPTER_BATCH = 32
 ADAPTER_GATE_STEPS = 50    # first step losses held against the CPU run
@@ -2733,11 +2756,11 @@ def offline_projection(dev, pts: np.ndarray, inst: np.ndarray, names: dict) -> d
             "excluded_boxes_near_integer": excluded_boxes, "features_differing": len(differing)}
 
 
-def offline_colour(pts: np.ndarray, inst: np.ndarray, decoders: dict) -> dict:
+def offline_colour(pts: np.ndarray, inst: np.ndarray) -> dict:
     """The OBJ colour transfer of the scan's label mesh from a seeded
-    texture: ``uv_to_color`` on the decoded texture array, and, where PIL is
-    installed, ``load_rgb``'s textured-OBJ route reading the same texture
-    from a PNG file (colours equal)."""
+    texture: ``uv_to_color`` on the decoded texture array, and ``load_rgb``'s
+    textured-OBJ route reading the same texture from a PNG file (colours
+    equal)."""
     from vlsat_tpu_torch.data.obj import (LABEL_FILE_NAME, LABEL_FILE_NAME_RAW, MTL_NAME,
                                           OBJ_NAME, load_rgb, uv_to_color)
     from vlsat_tpu_torch.data.ply import write_ply_vertices
@@ -2748,8 +2771,6 @@ def offline_colour(pts: np.ndarray, inst: np.ndarray, decoders: dict) -> dict:
     t0 = time.perf_counter()
     colors = uv_to_color(uv, tex)
     out = {"vertices": int(len(pts)), "uv_to_color_s": time.perf_counter() - t0}
-    if not decoders["PIL"]:
-        return out
     from PIL import Image
 
     d = OFFLINE_WORK / "textured"
@@ -2836,16 +2857,15 @@ def offline_adapter(dev) -> dict:
             "first_losses_max_rel_diff": float(np.abs(got / want - 1).max())}
 
 
-def write_sequences(scans_root: str, decoders: dict) -> dict:
-    """PIPE_FRAMES colour frames and ``sequence/frames.json`` for every scan;
-    the frames go to PNG files where PIL and imageio are installed, and are
-    returned by path (for an in-process project stage) otherwise."""
+def write_sequences(scans_root: str) -> None:
+    """PIPE_FRAMES colour frames (PNG files) and ``sequence/frames.json``
+    for every scan."""
+    from PIL import Image
+
     from vlsat_tpu_torch.data.ply import read_ply_vertices
 
     h, w = COLOR_HW
     rng = np.random.RandomState(SEED + 19)
-    files = decoders["PIL"] and decoders["imageio"]
-    frames = {}
     for scan in sorted(os.listdir(scans_root)):
         d = Path(scans_root) / scan
         pts = read_ply_vertices(str(d / "labels.instances.align.annotated.v2.ply")).points
@@ -2854,15 +2874,10 @@ def write_sequences(scans_root: str, decoders: dict) -> dict:
         for f, pose in enumerate(camera_rig(pts, PIPE_FRAMES)):
             name = f"frame-{f:06d}.color.png"
             img = rng.randint(0, 255, (h, w, 3), dtype=np.uint8)
-            if files:
-                from PIL import Image
-
-                Image.fromarray(img).save(d / "sequence" / name)
-            frames[str(d / "sequence" / name)] = img
+            Image.fromarray(img).save(d / "sequence" / name)
             meta.append({"color": name, "extrinsic": np.linalg.inv(pose).tolist()})
         (d / "sequence" / "frames.json").write_text(json.dumps({
             "frames": meta, "intrinsic": color_intrinsic().tolist(), "width": w, "height": h}))
-    return frames
 
 
 def result_metrics(out_dir: Path) -> dict:
@@ -2870,7 +2885,7 @@ def result_metrics(out_dir: Path) -> dict:
     return dict(line[len("Eval: "):].rsplit(": ", 1) for line in text.splitlines())
 
 
-def offline_pipeline(dev, root: str, scans_root: str, mv_root: str, decoders: dict) -> dict:
+def offline_pipeline(dev, root: str, scans_root: str, mv_root: str) -> dict:
     """``python -m vlsat_tpu_torch.tools.run_full_pipeline`` on the card
     (project, text, train, eval), the eval stage again on the CPU from its
     checkpoint, then ``align_scans`` and ``zero_shot_analysis`` on its outputs."""
@@ -2879,7 +2894,7 @@ def offline_pipeline(dev, root: str, scans_root: str, mv_root: str, decoders: di
     from vlsat_tpu_torch.tools.zero_shot_analysis import main as zero_shot
 
     here = Path(__file__).resolve().parent
-    frames = write_sequences(scans_root, decoders)
+    write_sequences(scans_root)
     cfg_path = OFFLINE_WORK / "cfg.json"
     cfg_path.write_text(json.dumps({
         "NAME": "Mmgnet", "SEED": SEED, "Batch_Size": TRAIN_BATCH, "MAX_EPOCHES": 1,
@@ -2887,14 +2902,8 @@ def offline_pipeline(dev, root: str, scans_root: str, mv_root: str, decoders: di
     out_dir = OFFLINE_WORK / "out"
     argv = ["--root", root, "--scans-root", scans_root, "--multi-view-root", mv_root,
             "--out", str(out_dir), "--config", str(cfg_path), "--encoder", "hash"]
-    res = {"frames_on_disk": bool(decoders["PIL"] and decoders["imageio"])}
+    res = {}
     stages = "project,text,train,eval"
-    if not res["frames_on_disk"]:  # the project stage's body on the decoded arrays
-        t0 = time.perf_counter()
-        pipeline.stage_project(pipeline.parse_args(argv + ["--stages", "project"]),
-                               read=frames.__getitem__)
-        res["project_in_process_s"] = time.perf_counter() - t0
-        stages = "text,train,eval"
     reset_launches()
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "vlsat_tpu_torch.tools.run_full_pipeline",
@@ -2970,16 +2979,11 @@ def offline(dev) -> dict:
     from vlsat_tpu_torch.data.assets import build_index
     from vlsat_tpu_torch.data.ply import read_ply_vertices
 
-    decoders = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "imageio")}
-    routes = {"PIL": "load_rgb's textured-OBJ route and load_pc_views (texture and view files)",
-              "imageio": "run_full_pipeline's project stage reading colour frame files"}
-    missing = [f"{m}: {routes[m]}" for m, ok in decoders.items() if not ok]
-    log("offline: decode libraries " + json.dumps(decoders) + (
-        "; file-decode routes not run on this host (the CPU tests run them; the same "
-        "functions take decoded arrays here): " + "; ".join(missing) if missing else ""))
+    if importlib.util.find_spec("PIL") is None:
+        fail("offline: PIL is missing: it decodes the texture, view and colour frame files")
     shutil.rmtree(OFFLINE_WORK, ignore_errors=True)
     OFFLINE_WORK.mkdir(parents=True)
-    out = {"decoders": decoders}
+    out = {}
     t0 = time.perf_counter()
     root, scans_root, mv_root = offline_scans()
     index = build_index(root, "validation_scans")
@@ -3003,13 +3007,13 @@ def offline(dev) -> dict:
         f"{out['projection']['excluded_points_near_border']} points near a border, "
         f"{out['projection']['excluded_boxes_near_integer']} of "
         f"{out['projection']['boxes_checked']} boxes near an integer")
-    out["colour"] = offline_colour(pts, inst, decoders)
+    out["colour"] = offline_colour(pts, inst)
     out["adapter"] = offline_adapter(dev)
     log(f"offline, adapter: {out['adapter']['steps_per_sec']:.1f} steps/s, {ADAPTER_EPOCHS} "
         f"epochs (cut from the default 20 to keep the phase short) in "
         f"{out['adapter']['wall_s']:.1f} s; best top-1 {out['adapter']['best_top1']:.2f} "
         f"(CPU {out['adapter']['best_top1_cpu']:.2f})")
-    out["pipeline"] = offline_pipeline(dev, root, scans_root, mv_root, decoders)
+    out["pipeline"] = offline_pipeline(dev, root, scans_root, mv_root)
     log("offline, pipeline: stage walls " + json.dumps(
         {k: round(v["wall_s"], 2) for k, v in out["pipeline"]["stages"].items()}))
     launches = read_launches()
@@ -3017,6 +3021,226 @@ def offline(dev) -> dict:
         launches[name] += sum(s[stage] for s in out["pipeline"]["stages"].values())
     out["launches"] = launches
     shutil.rmtree(OFFLINE_WORK, ignore_errors=True)
+    return out
+
+
+TOOLS_WORK = WORK.parent / "tools"
+TOOLS_SERVE = ["--max-batch", "32", "--clients", "64", "--duration", "4"]
+PARITY_SCANS = 64          # labelled PLY scans of the parity runbook's split
+PARITY_BATCH = 8           # the runbook's default --eval-batch-size
+SOAK_SCANS = 1177          # the 3DSSG train split's scans, the soak's default
+SOAK_CUTS = {"epochs": (20, 4), "kill_epoch": (12, 3), "valid_interval": (5, 2)}
+SOAK_TIMEOUT_S = 900
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def tools_serve(total: dict) -> dict:
+    """Phase 16, serve: the tool's runs in this process, its server against
+    a CPU server on the same weights."""
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.serving import BatchedServer
+    from vlsat_tpu_torch.tools import serve as tool
+
+    out = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    res = tool.main([*TOOLS_SERVE, "--http", "--naive", "--out", str(TOOLS_WORK / "serve.json")])
+    out["run_s"] = time.perf_counter() - t0
+    launches = read_launches()
+    add_launches(total, launches)
+    if launches["segment_max"] <= 0 or launches["pointnet_fused"] or launches["pointnet_fused_v2"]:
+        fail(f"tools, serve: launches {launches} (segment-max expected, PointNet not)")
+    out["launches"] = launches
+    for key in ("batched", "http", "naive_per_scene_dispatch"):
+        if not res[key]["scenes_per_sec"] > 0:
+            fail(f"tools, serve: {key} {res[key]}")
+        out[key] = res[key]
+    log(f"tools, serve: batched {res['batched']['scenes_per_sec']:.1f} / http "
+        f"{res['http']['scenes_per_sec']:.1f} / naive "
+        f"{res['naive_per_scene_dispatch']['scenes_per_sec']:.1f} scenes/s; launches {launches}")
+
+    args = tool.parse_args(TOOLS_SERVE)
+    model = tool.load_served(args)
+    cpu_model = build_mmgnet(MMGNetConfig(), "cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    pool = tool.request_pool()[:4]
+    with tool.build_server(args, model) as server:
+        got = [server.predict(s, timeout=600) for s in pool]
+    with BatchedServer(cpu_model, device="cpu", max_batch=1, pad_to_max=False) as cpu:
+        want = [cpu.predict(s, timeout=600) for s in pool]
+    diff = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        for key in ("obj_logits", "rel_cls"):
+            if g[key].shape != w[key].shape or \
+                    not np.allclose(g[key], w[key], rtol=1e-3, atol=1e-4):
+                fail(f"tools, serve: {key} of pool scene {k} differs from the CPU server: "
+                     f"max abs {np.abs(g[key] - w[key]).max()}")
+            diff = max(diff, float(np.abs(g[key] - w[key]).max()))
+    out["served_vs_cpu_max_abs_diff"] = diff
+    del model, server
+
+    art = TOOLS_WORK / "artifact"
+    t0 = time.perf_counter()
+    exp = tool.main(["--max-batch", "32", "--export-artifact", str(art)])
+    out["artifact_export_s"] = time.perf_counter() - t0
+    if exp["buckets"] != [12, 16] or "obj_logits_3d" not in exp["outputs"]:
+        fail(f"tools, serve: exported {exp}")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = tool.main(["--artifact", str(art), "--clients", "64", "--duration", "4", "--naive"])
+    out["artifact_run_s"] = time.perf_counter() - t0
+    launches = read_launches()
+    add_launches(total, launches)
+    if launches["segment_max"] <= 0 or not res["batched"]["scenes_per_sec"] > 0 or \
+            "naive_per_scene_dispatch" in res:
+        fail(f"tools, serve: artifact run {res}, launches {launches}")
+    out["artifact"] = res["batched"]
+    log(f"tools, serve: from the artifact {res['batched']['scenes_per_sec']:.1f} scenes/s "
+        f"(export {out['artifact_export_s']:.1f} s, load and run {out['artifact_run_s']:.1f} s)")
+
+    reset_launches()
+    res = tool.main(["--max-batch", "32", "--sweep", "--sweep-clients", "1", "4", "16", "64",
+                     "--duration", "2"])["batched"]
+    add_launches(total, read_launches())
+    curve = res["curve"]
+    if [r["clients"] for r in curve] != [1, 4, 16, 64] or res["knee"] not in curve or \
+            not all(r["scenes_per_sec"] > 0 and np.isfinite(r["p99_latency_ms"]) for r in curve) \
+            or (res["deadline_operating_point"] is not None
+                and res["deadline_operating_point"] not in curve):
+        fail(f"tools, serve: sweep {res}")
+    out["sweep"] = res
+    log(f"tools, serve: sweep knee {res['knee']}, operating point within "
+        f"{res['deadline_p99_ms']} ms p99 {res['deadline_operating_point']}")
+    return out
+
+
+def tools_parity(total: dict) -> dict:
+    """Phase 16, parity_eval: a seeded reference ``.pth`` directory on a
+    labelled PLY split, on the CPU, then on the card against the CPU's
+    ``result.txt``."""
+    from vlsat_tpu_torch.data.synthetic import make_synthetic_split, validation_scene_stats
+    from vlsat_tpu_torch.tools import parity_eval as tool
+
+    d = TOOLS_WORK / "parity"
+    t0 = time.perf_counter()
+    reference_module_files(d / "ckpt", SEED + 21)
+    nodes, rels = validation_scene_stats(PARITY_SCANS, seed=SEED + 21)
+    root, scans, _ = make_synthetic_split(
+        str(d / "split"), num_scans=PARITY_SCANS, node_counts=nodes, rel_counts=rels,
+        vertices_per_inst=VERTS_PER_INST, seed=SEED + 21, write_ply=True,
+        background_verts=BG_VERTS)
+    out = {"scans": PARITY_SCANS, "eval_batch_size": PARITY_BATCH,
+           "setup_s": time.perf_counter() - t0}
+    argv = ["--ckpt-dir", str(d / "ckpt"), "--root", root, "--scans", scans,
+            "--eval-batch-size", str(PARITY_BATCH)]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = tool.main([*argv, "--device", "cpu", "--out-json", str(d / "cpu.json")])
+    out["cpu_s"] = time.perf_counter() - t0
+    if rc:
+        fail(f"tools, parity_eval: the CPU run exited {rc}")
+    cpu = json.loads((d / "cpu.json").read_text())["metrics"]
+    labels = {key: label for label, key in tool.REF_LABEL_TO_KEY.items()}
+    (d / "result.txt").write_text("".join(
+        f"Eval: {labels[k]} : {v!r}\n" for k, v in cpu.items() if k in labels and np.isfinite(v)))
+    reset_launches()
+    report = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(report):
+        rc = tool.main([*argv, "--reference", str(d / "result.txt"),
+                        "--out-json", str(d / "card.json")])
+    out["card_s"] = time.perf_counter() - t0
+    launches = read_launches()
+    add_launches(total, launches)
+    if rc or "parity within ±0.5 pts: YES" not in report.getvalue():
+        fail(f"tools, parity_eval: the card run exited {rc}: {report.getvalue()[-3000:]}")
+    batches = -(-PARITY_SCANS // PARITY_BATCH)
+    if launches["segment_max"] != 4 * batches:
+        fail(f"tools, parity_eval: {launches['segment_max']} segment-max launches for "
+             f"{batches} batches (4 a batch expected)")
+    card = json.loads((d / "card.json").read_text())
+    diffs = {k: abs(card["metrics"][k] - v) for k, v in cpu.items()
+             if np.isfinite(v) and np.isfinite(card["metrics"][k])}
+    worst = max(diffs, key=diffs.get)
+    out.update(launches=launches, compared=len(card["reference"]), ok=card["ok"],
+               max_metric_diff=diffs[worst], max_metric_diff_key=worst,
+               mean_recall_50=cpu["mean_recall_50"])
+    log(f"tools, parity_eval: {len(card['reference'])} reference metrics, verdict YES; largest "
+        f"card-against-CPU difference {diffs[worst]} ({worst}); launches {launches}")
+    return out
+
+
+def tools_soak(here: Path) -> dict:
+    """Phase 16, soak: ``python -m vlsat_tpu_torch.tools.soak`` in its own
+    process group (its training child included), killed whole on timeout."""
+    import signal
+
+    out_json = TOOLS_WORK / "soak.json"
+    cmd = [sys.executable, "-m", "vlsat_tpu_torch.tools.soak", "--num-scans", str(SOAK_SCANS),
+           "--epochs", str(SOAK_CUTS["epochs"][1]),
+           "--kill-epoch", str(SOAK_CUTS["kill_epoch"][1]),
+           "--valid-interval", str(SOAK_CUTS["valid_interval"][1]), "--batch-size", "8",
+           "--base", str(TOOLS_WORK / "soak"), "--out", str(out_json),
+           "--timeout", str(SOAK_TIMEOUT_S)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=SOAK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"tools, soak: no end within {SOAK_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"tools, soak exited {proc.returncode}: {stderr[-2000:]} {stdout[-2000:]}")
+    res = json.loads(out_json.read_text())
+    kill, last = SOAK_CUTS["kill_epoch"][1], SOAK_CUTS["epochs"][1]
+    rows = res["epoch_stats"]
+    if [e["epoch"] for e in rows[:res["phase_a_epochs"]]] != list(range(1, kill)) or \
+            res["phase_b_rc"] != 0 or not res["resumed_within_one_epoch_of_kill"] or \
+            res["final_epoch"] != last:
+        fail(f"tools, soak: {json.dumps({k: v for k, v in res.items() if k != 'epoch_stats'})}")
+    vals = [v["mean_recall_50"] for v in res["val_trajectory"]]
+    if len(vals) != last // SOAK_CUTS["valid_interval"][1] or not np.isfinite(vals).all():
+        fail(f"tools, soak: validation trajectory {res['val_trajectory']}")
+    # the tool's steady rate leaves out every validating epoch, and at this
+    # cut every epoch past each phase's first validates: here each epoch's
+    # train rate is its scenes over its wall less its validation
+    first_b = rows[res["phase_a_epochs"]]
+    train_rates = [e["scenes"] / (e["wall_s"] - e.get("val_wall_s", 0.0))
+                   for e in rows[1:] if e is not first_b]
+    out = {k: res[k] for k in ("num_scans", "dataset_build_s", "phase_a_wall_s",
+                               "phase_a_epochs", "phase_b_wall_s", "resume_epoch",
+                               "final_epoch", "val_trajectory", "peak_rss_mb", "peak_hbm_mb",
+                               "steady_train_scenes_per_sec")}
+    out.update(command_s=wall, train_scenes_per_sec=float(np.median(train_rates)),
+               train_scenes_per_sec_epochs=train_rates,
+               val_wall_s=[e["val_wall_s"] for e in rows if "val_wall_s" in e],
+               cuts={k: f"{a} -> {b}" for k, (a, b) in SOAK_CUTS.items()},
+               launches="not counted: the training child is another process")
+    out_json.unlink()
+    log(f"tools, soak: {SOAK_SCANS} scans, killed in epoch {kill}, resumed at "
+        f"{res['resume_epoch']}, phase B rc 0; train {out['train_scenes_per_sec']:.1f} "
+        f"scenes/s; walls A {res['phase_a_wall_s']} / B {res['phase_b_wall_s']} s")
+    return out
+
+
+def tools_phase() -> dict:
+    """Phase 16: the serving and operations tools on the card."""
+    here = Path(__file__).resolve().parent
+    shutil.rmtree(TOOLS_WORK, ignore_errors=True)
+    TOOLS_WORK.mkdir(parents=True)
+    total = {}
+    out = {"serve": tools_serve(total), "parity_eval": tools_parity(total)}
+    torch.cuda.empty_cache()  # the soak's child trains on the same card
+    out["soak"] = tools_soak(here)
+    out["launches"] = total
+    shutil.rmtree(TOOLS_WORK, ignore_errors=True)
     return out
 
 
@@ -3036,6 +3260,13 @@ def main() -> None:
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
 
+    walls, t_mark = {}, [time.monotonic()]
+
+    def mark(phase: str) -> None:
+        now = time.monotonic()
+        walls[phase] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+
     # 1. build
     t0 = time.monotonic()
     build.build(["segment_max", "pointnet"])
@@ -3047,6 +3278,7 @@ def main() -> None:
     # 2-3. kernels against their twins, and times
     rng = np.random.RandomState(SEED)
     kernels = check_segment_max(dev, rng) + check_pointnet(dev, rng)
+    mark("build_and_kernels")
 
     # 4. full-width model
     cfg = MMGNetConfig(fused_pointnet=True)
@@ -3094,6 +3326,7 @@ def main() -> None:
 
     # 7. where one batch's time goes
     log(json.dumps({"profile": profile_forward(model, dev, scenes)}))
+    mark("serving")
 
     # 8. the evaluation path
     ev = evaluation(model, dev, cfg)
@@ -3101,12 +3334,14 @@ def main() -> None:
         k["launches_eval"] = ev["launches"].get(k["name"], 0)
     log(json.dumps({"evaluation": ev}))
     log(json.dumps({"serving": {**bench, "scenes": len(scenes), "max_batch": BATCH}}))
+    mark("evaluation")
 
     # 9. the training step
     tr = training(dev)
     for k in kernels:
         k["launches_train"] = tr["launches"].get(k["name"], 0)
     log(json.dumps({"training": tr}))
+    mark("training")
 
     # 10. the data feed
     feed = data_feed(model, dev, cfg)
@@ -3116,12 +3351,14 @@ def main() -> None:
         if feed["launches"][name] <= 0:
             fail(f"the data-feed evaluation never launched the {name} kernel")
     log(json.dumps({"data_feed": feed}))
+    mark("data_feed")
 
     # 11. the runner and the CLI
     run = runner(dev)
     for k in kernels:
         k["launches_runner"] = run["launches"].get(k["name"], 0)
     log(json.dumps({"runner": run}))
+    mark("runner")
 
     # 12. the model zoo
     zoo = variants(dev)
@@ -3138,21 +3375,32 @@ def main() -> None:
                "segment_max_launches": m["eval"]["launches"]["segment_max"],
                "knn_set_mismatches": sum(c.get("knn_set_mismatches", 0) for c in m["checks"])}
         for name, m in zoo["models"].items()}}))
+    mark("variants")
     # 13. the deployment artifacts
     exp = export_phase(model, dev, scenes)
     for k in kernels:
         k["launches_export"] = exp["launches"].get(k["name"], 0)
     log(json.dumps({"export": exp}))
+    mark("export")
     # 14. data parallelism
     dp = data_parallel(dev)
     for k in kernels:
         k["launches_data_parallel"] = dp["launches"].get(k["name"], 0)
     log(json.dumps({"data_parallel": dp}))
+    mark("data_parallel")
     # 15. the offline path
     off = offline(dev)
     for k in kernels:
         k["launches_offline"] = off["launches"].get(k["name"], 0)
     log(json.dumps({"offline": off}))
+    mark("offline")
+    # 16. the serving and operations tools
+    tl = tools_phase()
+    for k in kernels:
+        k["launches_tools"] = tl["launches"].get(k["name"], 0)
+    log(json.dumps({"tools": tl}))
+    mark("tools")
+    log(json.dumps({"phase_wall_s": walls}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

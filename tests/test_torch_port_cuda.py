@@ -800,3 +800,47 @@ def test_adapter_steps_on_card_equal_cpu(dev):
     np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
     for layer in ("fc1", "fc2"):
         np.testing.assert_allclose(p_card[layer]["kernel"], p_cpu[layer]["kernel"], atol=1e-5)
+
+
+def test_serve_tool_on_card(dev, tmp_path):
+    """``tools.serve`` for a second on the card at full width: every pool
+    scene answered, segment-max launched, the PointNet kernel not (the
+    tool's model keeps ``fused_pointnet`` off, as the JAX tool does)."""
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+    from vlsat_tpu_torch.tools import serve
+
+    segment_max.launches = pointnet_kernel.launches = 0
+    res = serve.main(["--max-batch", "8", "--clients", "4", "--duration", "1", "--naive",
+                      "--out", str(tmp_path / "serve.json")])
+    assert segment_max.launches > 0 and pointnet_kernel.launches == 0
+    assert res["batched"]["requests"] > 0 and res["naive_per_scene_dispatch"]["scenes_per_sec"] > 0
+    assert np.isfinite(res["batched"]["p99_latency_ms"])
+
+
+def test_parity_eval_on_card_within_tolerance_of_cpu(dev, tmp_path):
+    """``tools.parity_eval`` on a seeded full-width reference ``.pth``
+    directory and a 6-scan PLY split: the card run against the CPU run's
+    metrics as the reference is within the 0.5-point tolerance, with 4
+    segment-max launches a batch."""
+    import chip_smoke
+    from vlsat_tpu_torch.data.synthetic import make_synthetic_split
+    from vlsat_tpu_torch.ops.kernels import segment_max
+    from vlsat_tpu_torch.tools import parity_eval
+
+    chip_smoke.reference_module_files(tmp_path / "ckpt", seed=4)
+    root, scans, _ = make_synthetic_split(str(tmp_path / "split"), num_scans=6,
+                                          insts_per_scan=(4, 9), vertices_per_inst=300,
+                                          rels_per_scan=(2, 8), seed=4, write_ply=True)
+    kw = dict(ckpt_dir=str(tmp_path / "ckpt"), root=root, scans_root=scans,
+              eval_batch_size=2, verbose=False)
+    cpu, _ = parity_eval.run_parity_eval(**kw, device="cpu")
+    labels = {key: label for label, key in parity_eval.REF_LABEL_TO_KEY.items()}
+    ref = tmp_path / "result.txt"
+    ref.write_text("".join(f"Eval: {labels[k]} : {v!r}\n" for k, v in cpu.items()
+                           if k in labels and np.isfinite(v)))
+    segment_max.launches = 0
+    card, ok = parity_eval.run_parity_eval(**kw, reference=str(ref), device=dev)
+    assert ok and segment_max.launches == 4 * 3
+    assert sorted(card) == sorted(cpu)
+    for k, v in cpu.items():
+        assert (np.isnan(v) and np.isnan(card[k])) or abs(card[k] - v) <= 0.5, (k, card[k], v)

@@ -242,9 +242,14 @@ class HTTPFrontend:
                     self._reply(400, json.dumps(
                         {"error": f"{type(e).__name__}: {e}"}).encode(), "application/json")
 
+        class Server(ThreadingHTTPServer):
+            # the listen backlog (socketserver's default is 5): closed-loop
+            # load opens one connection per client at once
+            request_queue_size = 128
+
         self.server = server
         self.timeout_s = timeout_s
-        self.httpd = ThreadingHTTPServer((host, port), Handler)
+        self.httpd = Server((host, port), Handler)
         self.port = self.httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
 

@@ -54,9 +54,11 @@ def hash_image_encoder(views) -> np.ndarray:
 
 
 def read_frame(path: str) -> np.ndarray:
-    import imageio.v3 as iio  # the frame decoder, needed only here
+    """One colour frame file as an HxWx3 uint8 array."""
+    from PIL import Image  # the frame decoder, needed only here
 
-    return iio.imread(path)
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
 
 
 def stage_project(args, read=read_frame) -> int:
