@@ -844,3 +844,32 @@ def test_parity_eval_on_card_within_tolerance_of_cpu(dev, tmp_path):
     assert sorted(card) == sorted(cpu)
     for k, v in cpu.items():
         assert (np.isnan(v) and np.isnan(card[k])) or abs(card[k] - v) <= 0.5, (k, card[k], v)
+
+
+def test_bench_tools_on_card(dev, tmp_path, monkeypatch):
+    """``tools.bench`` on the card at a tiny size: ``bench.py``'s 32 keys,
+    finite rates, MFU against the card's peak and segment-max launched; then
+    ``tools.bench_encoders``' fused PointNet against its plain twin at the
+    kernel gate, the kernel launched."""
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+    from vlsat_tpu_torch.tools import bench, bench_encoders
+
+    tiny = dict(NODE_COUNTS=(5, 7, 9, 12), BUCKET=12, EVAL_CALLS=2, TRAIN_CALLS=2,
+                LATENCY_CALLS=5, LATENCY_NODES=9, SPLIT_SCANS=14, VERTS_PER_INST=60,
+                MIX_SCANS=40, EVAL_B=4, B_TR=2, K=2, K_MIX=1, SERV_DURATION=0.5, SERV_CLIENTS=4)
+    for name, value in tiny.items():
+        monkeypatch.setattr(bench, name, value)
+    monkeypatch.setenv("VLSAT_BENCH_E2E_REPS", "1")
+    monkeypatch.setenv("VLSAT_BENCH_SPLIT", str(tmp_path / "split"))
+    monkeypatch.setenv("VLSAT_BENCH_MIX_SPLIT", str(tmp_path / "mix"))
+    segment_max.launches = pointnet_kernel.launches = 0
+    res = bench.main([])
+    assert len(res) == 32 and segment_max.launches > 0
+    for k in res:
+        if k.endswith("scenes_per_sec") or k == "value":
+            assert np.isfinite(res[k]) and res[k] > 0, k
+    assert 0 < res["eval_mfu"] < 1 and 0 < res["train_mfu"] < 1
+
+    pointnet_kernel.launches = 0
+    enc = bench_encoders.main(["--scenes", "8", "--nodes", "9"])
+    assert enc["object_encoder"]["within_gate"] and pointnet_kernel.launches > 0

@@ -10,7 +10,9 @@ tensor takes the twin, a CUDA tensor the kernel (there is no fallback
 between them), a fake tensor gets the output shape (``torch.export`` traces
 through it without launching).  The operator is differentiable: its
 backward is the twin's gradient at the same primal, as the JAX package's
-interpret-mode call is differentiable.
+interpret-mode call is differentiable.  Its FLOP formula is the twin's
+matrix products, so that ``torch.utils.flop_counter`` counts both routes
+alike.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import ctypes
 from typing import Sequence
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from vlsat_tpu_torch.ops.kernels import build
 from vlsat_tpu_torch.ops.pointnet import pointnet_encode
@@ -130,6 +133,17 @@ def _backward(ctx, grad):
 
 
 _pointnet_op.register_autograd(_backward, setup_context=_setup)
+
+
+@register_flop_formula(torch.ops.vlsat.pointnet_encode)
+def _pointnet_flops(pts_shape, w1_shape, w2_shape, w3_shape, *_, **__) -> int:
+    """The plain chain's matrix products, 2*M*P*(C*H1 + H1*H2 + H2*O), so
+    that ``utils.profiling.compiled_flops`` counts either route alike."""
+    *lead, p, c = pts_shape
+    m = 1
+    for d in lead:
+        m *= d
+    return 2 * m * p * (c * w1_shape[1] + w2_shape[0] * w2_shape[1] + w3_shape[0] * w3_shape[1])
 
 
 def _fused(pts, weights, biases, p_chunk: int) -> torch.Tensor:

@@ -46,23 +46,10 @@ import time
 
 import numpy as np
 
+from vlsat_tpu_torch.tools.bench import predict_rate
+
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 KILL_DELAY_S = 2.0  # let the epoch get underway, so that the kill lands mid-epoch
-
-
-def predict_rate(model: dict, rtt_ms: float, h2d_MBps: float,
-                 d2h_MBps: float | None = None) -> float:
-    """Scenes/s a link-cost model predicts at a given link state (the
-    formula of ``bench.py``'s ``predict_rate``):
-
-    t_unit(link) = t_nolink + n_rtt*rtt + h2d_bytes/bw_h2d + d2h_bytes/bw_d2h
-
-    ``d2h_MBps`` defaults to ``h2d_MBps``."""
-    d2h = d2h_MBps if d2h_MBps else h2d_MBps
-    t = (model["t_nolink_s"] + model["n_rtt"] * rtt_ms / 1e3
-         + model["h2d_bytes"] / max(h2d_MBps * 1e6, 1.0)
-         + model["d2h_bytes"] / max(d2h * 1e6, 1.0))
-    return model["unit_scenes"] / max(t, 1e-9)
 
 
 def build_dataset(base: str, num_scans: int, seed: int = 11) -> dict:
@@ -87,6 +74,25 @@ def build_dataset(base: str, num_scans: int, seed: int = 11) -> dict:
     return {"root": root, "scans_root": scans_root, "cache": cache,
             "packed_root": os.path.join(base, "packed"),
             "pack_s": round(time.perf_counter() - t0, 1)}
+
+
+def bench_prediction(bench_json: str, steady_scenes_per_sec: float) -> dict:
+    """The steady train rate against the train e2e link-cost model of a
+    ``tools.bench`` line (``--out``; a ``{"parsed": ...}`` capture too),
+    predicted at the link state the bench probed."""
+    try:
+        with open(bench_json) as f:
+            b = json.load(f)
+        b = b.get("parsed", b)
+        m = b["link_cost_models"]["train_e2e_scenes_per_sec"]
+        lk = m["link"]
+        pred = predict_rate(m, lk["rtt_ms"], lk["h2d_MBps"], lk.get("d2h_MBps"))
+        return {"predicted_scenes_per_sec": round(pred, 1), "at_link": lk,
+                "in_situ_over_predicted": round(steady_scenes_per_sec / pred, 3),
+                "note": ("in-situ epochs include host-side logging/progbar "
+                         "and epoch boundaries the bench band does not")}
+    except Exception as e:  # noqa: BLE001 -- the comparison is best-effort
+        return {"error": str(e)[:200]}
 
 
 def launch_train(cfg_path: str, log_path: str, device: str) -> subprocess.Popen:
@@ -225,23 +231,8 @@ def main(argv=None) -> dict:
 
     # ---- compare against the bench link-cost model ----------------------
     if args.bench and res["steady_train_scenes_per_sec"]:
-        try:
-            with open(args.bench) as f:
-                b = json.load(f)
-            b = b.get("parsed", b)
-            m = b["link_cost_models"]["train_e2e_scenes_per_sec"]
-            lk = m["link"]
-            pred = predict_rate(m, lk["rtt_ms"], lk["h2d_MBps"], lk.get("d2h_MBps"))
-            res["bench_model_prediction"] = {
-                "predicted_scenes_per_sec": round(pred, 1),
-                "at_link": lk,
-                "in_situ_over_predicted": round(
-                    res["steady_train_scenes_per_sec"] / pred, 3),
-                "note": ("in-situ epochs include host-side logging/progbar "
-                         "and epoch boundaries the bench band does not"),
-            }
-        except Exception as e:  # noqa: BLE001 -- the comparison is best-effort
-            res["bench_model_prediction"] = {"error": str(e)[:200]}
+        res["bench_model_prediction"] = bench_prediction(
+            args.bench, res["steady_train_scenes_per_sec"])
 
     print(json.dumps(res, indent=1), flush=True)
     with open(args.out, "w") as f:

@@ -62,8 +62,10 @@ def compiled_flops(fn, *args, **kwargs) -> float:
     ``torch.utils.flop_counter.FlopCounterMode`` over the operators it
     runs (matrix products, convolutions, attention).  Unlike XLA's cost
     analysis, which counts a ``lax.scan`` body once, this counts every
-    iteration of a loop; operators without a FLOP formula (the port's
-    ``vlsat::*`` kernels among them) count 0."""
+    iteration of a loop.  ``vlsat::pointnet_encode`` counts its plain
+    chain's products (its formula in ``ops/kernels/pointnet_kernel.py``), so
+    the fused and plain routes count alike; ``vlsat::segment_max`` has no
+    products and counts 0, as the plain ``scatter_reduce`` does."""
     from torch.utils.flop_counter import FlopCounterMode
 
     with FlopCounterMode(display=False) as counter:
