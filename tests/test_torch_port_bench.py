@@ -31,6 +31,7 @@ import pytest
 import torch
 
 import bench as jax_bench
+from tests.torch_threads import one_thread  # noqa: F401
 from vlsat_tpu.data import packed as JPK
 from vlsat_tpu.data.synthetic import make_batch as jax_make_batch
 from vlsat_tpu.eval.engine import evaluate as jax_evaluate
@@ -62,16 +63,6 @@ CFG = MMGNetConfig(**WIDTHS)
 TINY = dict(NODE_COUNTS=(5, 7, 9, 12), BUCKET=12, NUM_POINTS=16, EVAL_CALLS=2, TRAIN_CALLS=2,
             LATENCY_CALLS=5, LATENCY_NODES=9, SPLIT_SCANS=8, VERTS_PER_INST=60, MIX_SCANS=10,
             EVAL_B=4, B_TR=2, K=2, K_MIX=1, SERV_DURATION=0.5, SERV_CLIENTS=4)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """These tests launch thousands of small operators: run them on one
-    thread, so that a loaded host does not stall every parallel region."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -135,6 +126,20 @@ def test_tree_nbytes_equals_bench(with_text):
     jax_b = jax_b.replace(**{f: None for f in vars(port) if f not in both
                              and hasattr(jax_b, f)})
     assert bench.tree_nbytes(port) == jax_bench.tree_nbytes(jax_b)
+
+
+@pytest.mark.parametrize("b3d", [False, True], ids=["dual", "3d_only"])
+def test_eval_many_equals_bench(b3d):
+    """The carry-chained eval of ``bench.py`` (``make_eval_many``) on the same
+    weights and batch: the carry after 2 calls at the model gate."""
+    model = build_mmgnet(CFG, "cpu", seed=0)
+    batch_kw = dict(seed=4, node_counts=(5, 7), num_points=16, bucket=8)
+    got = bench.make_eval_many(model, "cpu")(model.state_dict(), make_batch(**batch_kw), 2,
+                                             b3d=b3d)
+    params, stats = state_dict_to_flax(model.state_dict())
+    want = jax_bench.make_eval_many(FlaxMMGNet(cfg=FlaxConfig(**WIDTHS)))(
+        params, stats, jax_make_batch(**batch_kw), 2, b3d=b3d)
+    np.testing.assert_allclose(float(got) * 1e30, float(want) * 1e30, rtol=RTOL)
 
 
 def _bench_keys() -> set:

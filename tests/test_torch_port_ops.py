@@ -18,6 +18,7 @@ import torch
 
 import vlsat_tpu.ops.attention as JA
 import vlsat_tpu_torch.ops.attention as TA
+from vlsat_tpu.ops import masked_attention as j_masked_attention
 from vlsat_tpu.ops.descriptor import edge_descriptor as j_edge_descriptor
 from vlsat_tpu.ops.descriptor import gen_descriptor as j_gen_descriptor
 from vlsat_tpu.ops.graph import scatter_edges_to_nodes as j_scatter
@@ -25,6 +26,7 @@ from vlsat_tpu.ops.pallas.pointnet_kernel import (
     pointnet_encode_fused as j_fused, pointnet_encode_fused_v2 as j_fused_v2)
 from vlsat_tpu.ops.pallas.segment_max import segment_max_pallas
 from vlsat_tpu.scene import full_edge_index
+from vlsat_tpu_torch.ops import masked_attention
 from vlsat_tpu_torch.ops.descriptor import edge_descriptor, gen_descriptor
 from vlsat_tpu_torch.ops.graph import gather_edge_endpoints, scatter_edges_to_nodes
 from vlsat_tpu_torch.ops.kernels.pointnet_kernel import (
@@ -224,7 +226,54 @@ def test_masked_attention_factored_masks(monkeypatch, large):
     np.testing.assert_array_equal(got[2], 0.0)
 
 
+@pytest.mark.parametrize("bias_way", ["add", "mul"])
+@pytest.mark.parametrize("large", [False, True], ids=["handwritten", "library"])
+def test_head_second_masked_attention_matches_jax(monkeypatch, large, bias_way):
+    """``ops.masked_attention`` on (B, H, Nq, Dk) against JAX's
+    ``masked_attention`` (attention.py:80): scale, bias before the mask, and
+    zeros for a row with no valid key, on either route of the port's core."""
+    monkeypatch.setattr(TA, "LARGE_SCORE_ELEMENTS", 1 if large else 1 << 62)
+    rng = np.random.RandomState(17)
+    q, k, v = (rng.randn(2, 3, 6, 8).astype(np.float32) for _ in range(3))
+    bias = (rng.rand(2, 3, 6, 6) + 0.5).astype(np.float32)
+    mask = np.ones((2, 1, 6, 6), bool)
+    mask[0, 0, 2, :] = False  # fully masked query row
+    mask[..., 5] = False      # padded key for every query
+    want = np.asarray(j_masked_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                         mask=jnp.asarray(mask), bias=jnp.asarray(bias),
+                                         bias_way=bias_way))
+    got = masked_attention(T(q), T(k), T(v), mask=T(mask), bias=T(bias),
+                           bias_way=bias_way).numpy()
+    assert got.shape == (2, 3, 6, 8) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got[0, :, 2], 0.0)
+
+
 def test_masked_attention_mul_bias_matches_jax(monkeypatch):
     (q, k, v), rng = _attn_inputs(8, B=1, N=4)
     bias = (rng.rand(1, 1, 4, 4) + 0.5).astype(np.float32)
     _both(monkeypatch, True, q, k, v, bias=bias, bias_way="mul")
+
+
+@pytest.mark.parametrize("package", ["", ".ops", ".models", ".scene"],
+                         ids=["root", "ops", "models", "scene"])
+def test_package_roots_export_the_jax_names(package):
+    """Every name that a JAX package root exports (its classes, functions and
+    constants) imports from the port's twin under the same name."""
+    import importlib
+    import inspect
+
+    jax_mod = importlib.import_module("vlsat_tpu" + package)
+    port = importlib.import_module("vlsat_tpu_torch" + package)
+    names = [n for n, v in vars(jax_mod).items()
+             if not n.startswith("_") and not inspect.ismodule(v)
+             and getattr(v, "__module__", "vlsat_tpu").startswith("vlsat_tpu")]
+    assert names
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, f"vlsat_tpu_torch{package} lacks {missing}"
+    for n in names:
+        want, got = getattr(jax_mod, n), getattr(port, n)
+        if isinstance(want, (int, float, str, tuple)):
+            assert got == want, n
+        else:
+            assert got.__module__.startswith("vlsat_tpu_torch"), (n, got.__module__)

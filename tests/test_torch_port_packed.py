@@ -37,6 +37,7 @@ import torch
 
 from tests.mini_data import make_mini_dataset
 from tests.test_torch_port_model import NARROW, flax_variables, port_config
+from tests.torch_threads import single_thread  # noqa: F401
 from vlsat_tpu.data import packed as JPK
 from vlsat_tpu.data import resident as JR
 from vlsat_tpu.data.bucket_batch import resolve_batch as jax_resolve_batch
@@ -297,6 +298,7 @@ def _port_model(dropout: bool = True) -> MMGNet:
     return model
 
 
+@pytest.mark.usefixtures("single_thread")
 def test_resident_multi_step_equals_streaming_multi_step(mini):
     """Bit-equal losses and weights on the same rows, dropout on (step i
     seeds its masks with fold_in(rng, i) on both paths)."""
@@ -385,6 +387,7 @@ def _port_metrics(loader, **kw):
                     **{"verbose": False, **kw})
 
 
+@pytest.mark.usefixtures("single_thread")
 @pytest.mark.parametrize("which", ["mini", "multi"])
 def test_evaluate_over_every_loader_is_equal(mini, multi, monkeypatch, which):
     """tests/test_resident.py:64-175 and test_bucket_batch.py:62-75: the

@@ -50,6 +50,7 @@ from tests.mini_data import make_mini_dataset
 from tests.test_torch_port_model import NARROW, flax_variables, port_config, to_torch
 from tests.test_torch_port_packed import assert_same_metrics, scenes_kwargs
 from tests.test_torch_port_train import leaves
+from tests.torch_threads import one_thread  # noqa: F401
 from vlsat_tpu import scene as JSC
 from vlsat_tpu.data.synthetic import make_batch
 from vlsat_tpu.eval import engine as jengine

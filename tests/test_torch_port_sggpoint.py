@@ -30,6 +30,7 @@ from tests.test_torch_port_packed import assert_same_metrics
 from tests.test_torch_port_runner import (bridged_runners, both_configs, events, mini,  # noqa: F401
                                           write_config)
 from tests.test_torch_port_train import assert_grad_gate, flax_paths, leaves, no_dropout
+from tests.torch_threads import one_thread  # noqa: F401
 from vlsat_tpu.data.synthetic import make_batch
 from vlsat_tpu.interop.torch_oracle import _DGCNN, _EdgeGCN
 from vlsat_tpu.models import sggpoint as JS

@@ -23,6 +23,7 @@ import pytest
 
 from tests.mini_data import make_mini_dataset
 from tests.test_parity_runbook import _fabricate_ckpt
+from tests.torch_threads import one_thread  # noqa: F401
 from vlsat_tpu_torch.tools import parity_eval as port_parity
 from vlsat_tpu_torch.tools import serve as port_serve
 from vlsat_tpu_torch.tools import soak as port_soak

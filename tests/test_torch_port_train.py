@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from tests.test_torch_port_model import NARROW, flax_variables, port_config, to_torch
+from tests.torch_threads import one_thread  # noqa: F401
 from vlsat_tpu.data.synthetic import make_batch
 from vlsat_tpu.models import MMGNet as FlaxMMGNet
 from vlsat_tpu.models import MMGNetConfig as FlaxConfig

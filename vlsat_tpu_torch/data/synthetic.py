@@ -20,10 +20,8 @@ import numpy as np
 import torch
 
 from vlsat_tpu_torch.ops.descriptor import gen_descriptor
-from vlsat_tpu_torch.scene import SceneBatch, collate, full_edge_index, pad_scene, pick_bucket
-
-NUM_OBJ_CLASSES = 160
-NUM_REL_CLASSES = 26
+from vlsat_tpu_torch.scene import (NUM_OBJ_CLASSES, NUM_REL_CLASSES, SceneBatch, collate,
+                                   full_edge_index, pad_scene, pick_bucket)
 _ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "assets", "3dssg")
 

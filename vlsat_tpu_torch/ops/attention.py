@@ -1,9 +1,9 @@
 """Masked scaled-dot-product attention with an optional additive bias.
 
-Counterpart of ``vlsat_tpu/ops/attention.py`` (``masked_attention_bnhd``
-:114-177, ``pairwise_distance_bias`` :180-191).  Scenes are a batch axis, so
-the reference's per-scene block-diagonal mask is a padding mask.  Rows with
-no valid key return zeros, not NaN.
+Counterpart of ``vlsat_tpu/ops/attention.py`` (``masked_attention`` :80-111,
+``masked_attention_bnhd`` :114-177, ``pairwise_distance_bias`` :180-191).
+Scenes are a batch axis, so the reference's per-scene block-diagonal mask is
+a padding mask.  Rows with no valid key return zeros, not NaN.
 """
 
 from __future__ import annotations
@@ -92,6 +92,23 @@ def masked_attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q_mask is not None:
         out = torch.where(q_mask[:, :, None, None], out, 0.0)
     return out
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     mask: torch.Tensor | None = None,
+                     bias: torch.Tensor | None = None,
+                     bias_way: str = "add") -> torch.Tensor:
+    """Head-second attention core: q (B, H, Nq, Dk), k (B, H, Nk, Dk),
+    v (B, H, Nk, Dv) -> (B, H, Nq, Dv).
+
+    mask/bias broadcast to (B, H, Nq, Nk); True = attend.  Scores are scaled
+    by sqrt(Dk), the bias is applied before the mask ('add' or 'mul'), and a
+    row whose keys are all masked gives zeros, as in ``masked_attention_bnhd``,
+    which computes it on the head-last views.
+    """
+    out = masked_attention_bnhd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                mask=mask, bias=bias, bias_way=bias_way)
+    return out.transpose(1, 2)
 
 
 def pairwise_distance_bias(centers: torch.Tensor) -> torch.Tensor:

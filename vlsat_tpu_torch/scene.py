@@ -1,10 +1,10 @@
 """Fixed-shape scene-graph batch of torch tensors.
 
-Counterpart of ``vlsat_tpu/scene.py``: ``SceneBatch`` (:60-117) with the same
-fields, shapes and dtypes, and the host helpers ``pick_bucket``,
-``full_edge_index`` (:42-55), ``pad_scene`` with ``_SAFE_DESCRIPTOR``
-(:120-171), ``pad_batch_scenes`` (:174-211, host batches only) and
-``collate`` (:214-240).  Scenes are padded to a node bucket;
+Counterpart of ``vlsat_tpu/scene.py``: the problem sizes (:29-31),
+``SceneBatch`` (:60-117) with the same fields, shapes and dtypes, and the
+host helpers ``pick_bucket``, ``full_edge_index`` (:42-55), ``pad_scene``
+with ``_SAFE_DESCRIPTOR`` (:120-171), ``pad_batch_scenes`` (:174-211, host
+batches only) and ``collate`` (:214-240).  Scenes are padded to a node bucket;
 padded entries are sanitized so that downstream ``log``/``norm`` calls stay
 finite, and the masks carry validity.
 """
@@ -16,6 +16,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+# Default problem sizes of the 3DSSG benchmark.
+NUM_OBJ_CLASSES = 160
+NUM_REL_CLASSES = 26
+DESCRIPTOR_DIM = 11
 
 # Node-count buckets; E is always N*(N-1).
 DEFAULT_NODE_BUCKETS = (4, 8, 12, 16, 24, 32, 48, 64)

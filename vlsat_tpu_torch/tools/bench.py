@@ -181,6 +181,35 @@ def probe_link(reps: int = 10, blob_mb: int = 64, device=None) -> dict:
             "d2h_MBps": round(d2h, 1)}
 
 
+def make_eval_many(model, device=None):
+    """``bench.py``'s carry-chained eval (``make_eval_many``):
+    ``eval_many(state, batch, n, b3d=False)`` runs ``n`` eval calls in a
+    row, each on the batch's points, 2D features and descriptors perturbed
+    by ``carry * 1e-30``, and adds ``1e-30 * sum(|output|)`` over every
+    output to the carry it returns.  ``bench.py`` chains its scan so that
+    XLA can neither hoist nor drop the body; eager PyTorch does neither, so
+    the rates here time plain calls (``time_calls``) and this function keeps
+    the same computation for callers that want one value out of ``n``
+    calls."""
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    steps = {b3d: make_eval_step(model, branch_3d_only=b3d, device=device)
+             for b3d in (False, True)}
+
+    def eval_many(state, batch, n: int, b3d: bool = False) -> torch.Tensor:
+        batch = batch.to(steps[b3d].device)
+        carry = torch.zeros((), device=steps[b3d].device)
+        for _ in range(n):
+            eps = carry * 1e-30
+            out = steps[b3d](state, batch.replace(
+                obj_points=batch.obj_points + eps, obj_2d_feats=batch.obj_2d_feats + eps,
+                descriptor=batch.descriptor + eps))
+            carry = carry + sum(o.abs().sum() for o in out.values()) * 1e-30
+        return carry
+
+    return eval_many
+
+
 def predict_rate(model: dict, rtt_ms: float, h2d_MBps: float,
                  d2h_MBps: float | None = None) -> float:
     """Scenes/s the link-cost model predicts at a given link state.
