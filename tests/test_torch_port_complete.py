@@ -57,6 +57,9 @@ EXCLUDED_NAMES = {
         "waits for transformers and the CLIP ViT-B/32 weights, which are not in the "
         "repository; the port's tools raise clipsem.HF_MISSING",
     ("vlsat_tpu/clipsem/__init__.py", "HFCLIPTextEncoder"): "re-exports the above",
+    ("vlsat_tpu/utils/profiling.py", "annotate"):
+        "utils.profiling.span takes its place: a named range in the profiler's trace "
+        "that also records a span",
 }
 
 

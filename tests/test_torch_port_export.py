@@ -234,7 +234,7 @@ def test_cli_trace_mode_exports_the_registry_model(mini, tmp_path):  # noqa: F81
 def test_profiling_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
     monkeypatch.setenv("VLSAT_PROFILE_DIR", str(tmp_path))
     with profiling.trace() as path:
-        with profiling.annotate("work"):
+        with profiling.span("work"):
             torch.ones(4, 4) @ torch.ones(4, 4)
     with open(path) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}

@@ -515,8 +515,8 @@ def _npz(**arrays) -> bytes:
 @pytest.mark.parametrize("eval_3d_only", [True, False])
 def test_serve_answers_equal_jax(mini, tmp_path, monkeypatch, eval_3d_only):
     """``Runner.serve(port=0)`` of both packages on bridged weights, f32 wire:
-    equal answers at the gate, /healthz counts, 400 on a bad payload, 404
-    elsewhere."""
+    equal answers at the gate, /healthz counts (the port's also its failed
+    batches), 400 on a bad payload, 404 elsewhere."""
     monkeypatch.setenv("VLSAT_WIRE_DTYPE", "float32")
     _, paths = mini
     path = write_config(tmp_path / "serve.json", paths["unpacked"], EVAL_3D_ONLY=eval_3d_only)
@@ -541,7 +541,9 @@ def test_serve_answers_equal_jax(mini, tmp_path, monkeypatch, eval_3d_only):
             code, health = _get(pfe.port, "/healthz")
             health = json.loads(health)
             assert code == 200 and health["ok"] and health["scenes"] == len(scenes)
-            assert sorted(health) == sorted(json.loads(_get(jfe.port, "/healthz")[1]))
+            # the JAX server's keys, and the port's count of failed batches
+            assert set(health) == set(json.loads(_get(jfe.port, "/healthz")[1])) | {"failed"}
+            assert health["failed"] == 0
             code, err = _post(pfe.port, "/predict", _npz(obj_points=scenes[0]["obj_points"]))
             assert code == 400
             assert json.loads(err)["error"].startswith("ValueError: payload needs")

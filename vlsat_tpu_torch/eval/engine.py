@@ -25,6 +25,13 @@ buffers are gathered to rank 0, which assembles them in global scene order
 batch), and every rank returns rank 0's metric dict.  Only rank 0 prints
 progress and writes ``save_dir``.
 
+Spans (``utils.profiling``, recorded while a profiler session is active):
+``eval.input`` (waiting for the loader's next item), ``eval.step`` (the eval
+step, the rank functions, the pack and the D2H enqueue of one item, with its
+``batches``: K for a group), ``eval.fetch`` (waiting for that copy, and the
+gather to rank 0), ``eval.assemble`` (unpack, merge and host assembly) and
+``eval.reduce`` (the metric dict after the loop).
+
 Not ported: the 128-lane chunk trim (a TPU layout effect).
 """
 
@@ -55,6 +62,7 @@ from vlsat_tpu_torch.eval.metrics import (
 from vlsat_tpu_torch.eval.recall import batched_scene_hits, tally_hits_batch
 from vlsat_tpu_torch.parallel.mesh import shard_batch
 from vlsat_tpu_torch.scene import SceneBatch
+from vlsat_tpu_torch.utils import profiling
 from vlsat_tpu_torch.utils.progbar import Progbar
 
 SR_COMBOS = (("predcls", "rels"), ("sgcls", "triplet"))
@@ -358,21 +366,30 @@ def evaluate(eval_step, state, loader: Iterable, num_rel_classes: int = 26,
 
     def _drain(entry) -> None:
         buf, layout, event, payload = entry
-        if event is not None:
-            event.synchronize()
-        bufs = [buf] if world is None else _gather_to_root(buf, world)
+        with profiling.span("eval.fetch"):
+            if event is not None:
+                event.synchronize()
+            bufs = [buf] if world is None else _gather_to_root(buf, world)
         if bufs is None:  # not rank 0: rank 0 assembles
             return
-        if grouped:  # row j of the (K, n) buffer is batch j; tail rows are skipped
-            for j, host in enumerate(payload):
-                _assemble(_merge([_unpack(b[j].numpy(), layout) for b in bufs]), host)
-        else:
-            _assemble(_merge([_unpack(b.numpy(), layout) for b in bufs]), payload)
+        with profiling.span("eval.assemble"):
+            if grouped:  # row j of the (K, n) buffer is batch j; tail rows are skipped
+                for j, host in enumerate(payload):
+                    _assemble(_merge([_unpack(b[j].numpy(), layout) for b in bufs]), host)
+            else:
+                _assemble(_merge([_unpack(b.numpy(), layout) for b in bufs]), payload)
 
     ring = _PinnedRing()
     pending: deque = deque()
-    for payload, dev_in in Prefetcher(_prepare(loader), depth=2):
-        with torch.inference_mode():
+    items = iter(Prefetcher(_prepare(loader), depth=2))
+    while True:
+        with profiling.span("eval.input"):
+            item = next(items, None)
+        if item is None:
+            break
+        payload, dev_in = item
+        with profiling.span("eval.step", batches=dev_in[1].shape[0] if grouped else 1), \
+                torch.inference_mode():
             if grouped:
                 full, idx = dev_in
                 if idx.dim() == 1:  # batch ids of a batch-stacked split
@@ -404,64 +421,66 @@ def evaluate(eval_step, state, loader: Iterable, num_rel_classes: int = 26,
 
     if not root:  # rank 0 assembled every batch
         return _from_rank0(None, world)
-    arr = {k: (np.concatenate(v) if v else np.zeros(0, np.int64)) for k, v in acc.items()}
-    cls_matrix = np.concatenate(cls_rows) if cls_rows else np.zeros((0, 5), np.int64)
+    with profiling.span("eval.reduce"):
+        arr = {k: (np.concatenate(v) if v else np.zeros(0, np.int64)) for k, v in acc.items()}
+        cls_matrix = np.concatenate(cls_rows) if cls_rows else np.zeros((0, 5), np.int64)
 
-    metrics: Dict[str, float] = {}
-    families = [("obj_acc", "topk_obj", (1, 5, 10)), ("rel_acc", "topk_rel", (1, 3, 5)),
-                ("triplet_acc", "topk_triplet", (50, 100))]
-    if has_2d:
-        families += [("obj_acc_2d", "topk_obj_2d", (1, 5, 10)),
-                     ("rel_acc_2d", "topk_rel_2d", (1, 3, 5)),
-                     ("triplet_acc_2d", "topk_triplet_2d", (50, 100))]
-    for name, key, ks in families:
-        for k in ks:
-            metrics[f"{name}_{k}"] = topk_accuracy(arr[key], k)
+        metrics: Dict[str, float] = {}
+        families = [("obj_acc", "topk_obj", (1, 5, 10)), ("rel_acc", "topk_rel", (1, 3, 5)),
+                    ("triplet_acc", "topk_triplet", (50, 100))]
+        if has_2d:
+            families += [("obj_acc_2d", "topk_obj_2d", (1, 5, 10)),
+                         ("rel_acc_2d", "topk_rel_2d", (1, 3, 5)),
+                         ("triplet_acc_2d", "topk_triplet_2d", (50, 100))]
+        for name, key, ks in families:
+            for k in ks:
+                metrics[f"{name}_{k}"] = topk_accuracy(arr[key], k)
 
-    m1, m3, m5 = compute_mean_predicate(cls_matrix, arr["topk_rel"],
-                                        num_rel_classes=num_rel_classes)
-    metrics.update(rel_acc_mean_1=m1, rel_acc_mean_3=m3, rel_acc_mean_5=m5)
-    mr = get_mean_recall(arr["topk_triplet"], cls_matrix, num_rel_classes=num_rel_classes)
-    metrics.update(mean_recall_50=float(mr[0]), mean_recall_100=float(mr[1]))
-    if has_2d:
-        m1_2, m3_2, m5_2 = compute_mean_predicate(cls_matrix, arr["topk_rel_2d"],
-                                                  num_rel_classes=num_rel_classes)
-        metrics.update(rel_acc_2d_mean_1=m1_2, rel_acc_2d_mean_3=m3_2,
-                       rel_acc_2d_mean_5=m5_2)
-        mr2 = get_mean_recall(arr["topk_triplet_2d"], cls_matrix,
-                              num_rel_classes=num_rel_classes)
-        metrics.update(mean_recall_2d_50=float(mr2[0]), mean_recall_2d_100=float(mr2[1]))
+        m1, m3, m5 = compute_mean_predicate(cls_matrix, arr["topk_rel"],
+                                            num_rel_classes=num_rel_classes)
+        metrics.update(rel_acc_mean_1=m1, rel_acc_mean_3=m3, rel_acc_mean_5=m5)
+        mr = get_mean_recall(arr["topk_triplet"], cls_matrix, num_rel_classes=num_rel_classes)
+        metrics.update(mean_recall_50=float(mr[0]), mean_recall_100=float(mr[1]))
+        if has_2d:
+            m1_2, m3_2, m5_2 = compute_mean_predicate(cls_matrix, arr["topk_rel_2d"],
+                                                      num_rel_classes=num_rel_classes)
+            metrics.update(rel_acc_2d_mean_1=m1_2, rel_acc_2d_mean_3=m3_2,
+                           rel_acc_2d_mean_5=m5_2)
+            mr2 = get_mean_recall(arr["topk_triplet_2d"], cls_matrix,
+                                  num_rel_classes=num_rel_classes)
+            metrics.update(mean_recall_2d_50=float(mr2[0]), mean_recall_2d_100=float(mr2[1]))
 
-    if train_triplet_vocab is not None:
-        metrics.update(get_zero_shot_recall(arr["topk_triplet"], cls_matrix,
-                                            train_triplet_vocab))
+        if train_triplet_vocab is not None:
+            metrics.update(get_zero_shot_recall(arr["topk_triplet"], cls_matrix,
+                                                train_triplet_vocab))
 
-    if scene_recall:
-        ks = (20, 50, 100)
-        for key, vals in sr_acc.items():
-            stacked = np.concatenate(vals) if vals else np.full((1, len(ks)), np.nan)
-            for i, k in enumerate(ks):
-                metrics[f"{key}_recall_{k}"] = float(np.nanmean(stacked[:, i]) * 100)
-        for key, vals in sr_cls.items():
-            stacked = (np.concatenate(vals) if vals
-                       else np.full((1, num_rel_classes, len(ks)), -1.0))
-            masked = np.where(stacked >= 0, stacked, np.nan)  # -1 = class absent
-            with np.errstate(invalid="ignore"):
-                cls_mean = np.nanmean(masked, axis=0)
+        if scene_recall:
+            ks = (20, 50, 100)
+            for key, vals in sr_acc.items():
+                stacked = np.concatenate(vals) if vals else np.full((1, len(ks)), np.nan)
                 for i, k in enumerate(ks):
-                    metrics[f"{key}_mean_recall_{k}"] = float(np.nanmean(cls_mean[:, i]) * 100)
+                    metrics[f"{key}_recall_{k}"] = float(np.nanmean(stacked[:, i]) * 100)
+            for key, vals in sr_cls.items():
+                stacked = (np.concatenate(vals) if vals
+                           else np.full((1, num_rel_classes, len(ks)), -1.0))
+                masked = np.where(stacked >= 0, stacked, np.nan)  # -1 = class absent
+                with np.errstate(invalid="ignore"):
+                    cls_mean = np.nanmean(masked, axis=0)
+                    for i, k in enumerate(ks):
+                        metrics[f"{key}_mean_recall_{k}"] = float(
+                            np.nanmean(cls_mean[:, i]) * 100)
 
-    if save_dir is not None:
-        os.makedirs(save_dir, exist_ok=True)
-        np.save(os.path.join(save_dir, "topk_pred_list.npy"), arr["topk_rel"])
-        np.save(os.path.join(save_dir, "topk_triplet_list.npy"), arr["topk_triplet"])
-        np.save(os.path.join(save_dir, "cls_matrix_list.npy"), cls_matrix)
-        if with_scores and sub_scores:
-            np.save(os.path.join(save_dir, "sub_scores_list.npy"), np.concatenate(sub_scores))
-            np.save(os.path.join(save_dir, "obj_scores_list.npy"), np.concatenate(obj_scores))
-            np.save(os.path.join(save_dir, "rel_scores_list.npy"), np.concatenate(rel_scores))
-        with open(os.path.join(save_dir, "result.txt"), "w") as f:
-            for k, v in metrics.items():
-                print(f"Eval: {k}: {v}", file=f)
+        if save_dir is not None:
+            os.makedirs(save_dir, exist_ok=True)
+            np.save(os.path.join(save_dir, "topk_pred_list.npy"), arr["topk_rel"])
+            np.save(os.path.join(save_dir, "topk_triplet_list.npy"), arr["topk_triplet"])
+            np.save(os.path.join(save_dir, "cls_matrix_list.npy"), cls_matrix)
+            if with_scores and sub_scores:
+                np.save(os.path.join(save_dir, "sub_scores_list.npy"), np.concatenate(sub_scores))
+                np.save(os.path.join(save_dir, "obj_scores_list.npy"), np.concatenate(obj_scores))
+                np.save(os.path.join(save_dir, "rel_scores_list.npy"), np.concatenate(rel_scores))
+            with open(os.path.join(save_dir, "result.txt"), "w") as f:
+                for k, v in metrics.items():
+                    print(f"Eval: {k}: {v}", file=f)
 
     return metrics if world is None else _from_rank0(metrics, world)

@@ -13,17 +13,27 @@ runs the dual forward, whose 3D outputs are the same.
 
 One worker thread owns every device call; the HTTP request threads only
 enqueue scenes and wait on their futures.
+
+Spans (``utils.profiling``, recorded while a profiler session is active):
+``serve.queue`` a request (submit to being taken into a batch; its request
+and batch ids), ``serve.collect`` a batch (first request taken to batch
+closed) and ``serve.batch`` (batch id, scenes, bucket, valid edges, request
+ids) with its children ``serve.prepare`` (pad, collate, wire, pin),
+``serve.step`` (the step's launches enqueued), ``serve.fetch`` (the outputs'
+copy to the host, which waits for the card) and ``serve.resolve`` (unpad,
+the futures and their callbacks).
 """
 
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -32,6 +42,7 @@ from vlsat_tpu_torch.device import resolve_device
 from vlsat_tpu_torch.scene import (
     DEFAULT_NODE_BUCKETS, collate, full_edge_index, pad_scene, pick_bucket)
 from vlsat_tpu_torch.train.step import make_eval_step
+from vlsat_tpu_torch.utils import profiling
 
 
 class BatchedServer:
@@ -79,7 +90,10 @@ class BatchedServer:
         self._q: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        self.stats = {"scenes": 0, "batches": 0, "batch_size_sum": 0}
+        self._request_ids = itertools.count()
+        self._batch_ids = itertools.count()
+        # "failed": batches whose run raised (their clients get the error)
+        self.stats = {"scenes": 0, "batches": 0, "batch_size_sum": 0, "failed": 0}
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "BatchedServer":
@@ -104,78 +118,94 @@ class BatchedServer:
         optional "obj_2d_feats" (n, D2), optional "edge_index" (e, 2),
         by default the full directed graph}."""
         fut: Future = Future()
-        self._q.put((scene, fut))
+        self._q.put((scene, fut, next(self._request_ids), profiling.stamp()))
         return fut
 
     def predict(self, scene: Dict[str, np.ndarray], timeout: float = 60.0):
         return self.submit(scene).result(timeout=timeout)
 
     # --------------------------------------------------------------- worker
-    def _collect(self) -> List:
+    def _collect(self) -> Tuple[int, List]:
         """Block for one request, then take more up to max_batch until the
-        deadline passes."""
+        deadline passes; returns the batch's id and its requests."""
         try:
             first = self._q.get(timeout=0.1)
         except queue.Empty:
-            return []
+            return -1, []
+        batch_id = next(self._batch_ids)
+        # the wait of each request whose submit was stamped (spans on)
+        profiling.record("serve.queue", first[3], request=first[2], batch=batch_id)
         items = [first]
-        deadline = time.monotonic() + self.deadline_s
-        while len(items) < self.max_batch:
-            rest = deadline - time.monotonic()
-            if rest <= 0:
-                break
-            try:
-                items.append(self._q.get(timeout=rest))
-            except queue.Empty:
-                break
-        return items
+        with profiling.span("serve.collect", batch=batch_id) as sp:
+            deadline = time.monotonic() + self.deadline_s
+            while len(items) < self.max_batch:
+                rest = deadline - time.monotonic()
+                if rest <= 0:
+                    break
+                try:
+                    item = self._q.get(timeout=rest)
+                except queue.Empty:
+                    break
+                profiling.record("serve.queue", item[3], request=item[2], batch=batch_id)
+                items.append(item)
+            sp.set(scenes=len(items))
+        return batch_id, items
 
     def _loop(self):
         while not self._stop.is_set():
-            items = self._collect()
+            batch_id, items = self._collect()
             if not items:
                 continue
             try:
-                self._run_batch(items)
+                self._run_batch(batch_id, items)
             except Exception as e:  # the clients get the error
-                for _, fut in items:
+                self.stats["failed"] += 1
+                for _, fut, _, _ in items:
                     if not fut.done():
                         fut.set_exception(e)
 
-    def _run_batch(self, items):
-        scenes, futs = zip(*items)
-        counts = [s["obj_points"].shape[0] for s in scenes]
-        bucket = pick_bucket(max(counts), self.buckets)
-        padded, eis = [], []
-        for s in scenes:
-            n = s["obj_points"].shape[0]
-            ei = np.asarray(s.get("edge_index", full_edge_index(n)), np.int32)
-            eis.append(ei)
-            padded.append(pad_scene(
-                np.asarray(s["obj_points"], np.float32),
-                np.asarray(s["descriptor"], np.float32),
-                np.asarray(s.get("obj_2d_feats",
-                                 np.zeros((n, self.feat_dim), np.float32)), np.float32),
-                np.zeros((n,), np.int32),
-                ei, np.zeros((len(ei), self.num_rel_classes), np.float32),
-                n_max=bucket, feat_dim=self.feat_dim,
-            ))
-        if self.pad_to_max:
-            while len(padded) < self.max_batch:
-                padded.append({k: np.zeros_like(v) for k, v in padded[0].items()})
-        batch = encode_wire(collate(padded))
-        if self._pin:  # the eval step's copy to the card is then asynchronous
-            batch = batch.replace(**{k: v.pin_memory() for k, v in vars(batch).items()
-                                     if v is not None})
-        out = self._eval(self._state, batch)
-        ol = out[f"obj_logits_{self.branch_key}"].cpu().numpy()
-        rc = out[f"rel_cls_{self.branch_key}"].cpu().numpy()
-        self.stats["scenes"] += len(items)
-        self.stats["batches"] += 1
-        self.stats["batch_size_sum"] += len(items)
-        for k, (fut, n, ei) in enumerate(zip(futs, counts, eis)):
-            fut.set_result({"obj_logits": ol[k, :n], "rel_cls": rc[k, :len(ei)],
-                            "edge_index": ei})
+    def _run_batch(self, batch_id: int, items):
+        scenes, futs, requests, _ = zip(*items)
+        with profiling.span("serve.batch", batch=batch_id, scenes=len(items),
+                            requests=requests) as sp:
+            with profiling.span("serve.prepare"):
+                counts = [s["obj_points"].shape[0] for s in scenes]
+                bucket = pick_bucket(max(counts), self.buckets)
+                padded, eis, edges = [], [], 0
+                for s in scenes:
+                    n = s["obj_points"].shape[0]
+                    ei = np.asarray(s.get("edge_index", full_edge_index(n)), np.int32)
+                    eis.append(ei)
+                    edges += len(ei)
+                    padded.append(pad_scene(
+                        np.asarray(s["obj_points"], np.float32),
+                        np.asarray(s["descriptor"], np.float32),
+                        np.asarray(s.get("obj_2d_feats",
+                                         np.zeros((n, self.feat_dim), np.float32)), np.float32),
+                        np.zeros((n,), np.int32),
+                        ei, np.zeros((len(ei), self.num_rel_classes), np.float32),
+                        n_max=bucket, feat_dim=self.feat_dim,
+                    ))
+                sp.set(bucket=bucket, edges=edges)
+                if self.pad_to_max:
+                    while len(padded) < self.max_batch:
+                        padded.append({k: np.zeros_like(v) for k, v in padded[0].items()})
+                batch = encode_wire(collate(padded))
+                if self._pin:  # the eval step's copy to the card is then asynchronous
+                    batch = batch.replace(**{k: v.pin_memory() for k, v in vars(batch).items()
+                                             if v is not None})
+            with profiling.span("serve.step"):  # the host enqueues the step's launches
+                out = self._eval(self._state, batch)
+            with profiling.span("serve.fetch"):  # waits for the card, then copies
+                ol = out[f"obj_logits_{self.branch_key}"].cpu().numpy()
+                rc = out[f"rel_cls_{self.branch_key}"].cpu().numpy()
+            with profiling.span("serve.resolve"):
+                self.stats["scenes"] += len(items)
+                self.stats["batches"] += 1
+                self.stats["batch_size_sum"] += len(items)
+                for k, (fut, n, ei) in enumerate(zip(futs, counts, eis)):
+                    fut.set_result({"obj_logits": ol[k, :n], "rel_cls": rc[k, :len(ei)],
+                                    "edge_index": ei})
 
 
 class HTTPFrontend:
@@ -190,7 +220,7 @@ class HTTPFrontend:
       A payload that cannot be served gets 400 and
       ``{"error": "<Type>: <message>"}``.
     * ``GET /healthz``: JSON ``{"ok": true, "scenes", "batches",
-      "mean_batch_size"}``.
+      "mean_batch_size", "failed"}`` (``failed``: batches whose run raised).
     * Any other path: 404.
 
     ``port=0`` binds an ephemeral port; ``.port`` holds the bound one.
@@ -221,6 +251,7 @@ class HTTPFrontend:
                 body = json.dumps({
                     "ok": True, "scenes": st["scenes"], "batches": st["batches"],
                     "mean_batch_size": st["batch_size_sum"] / max(st["batches"], 1),
+                    "failed": st["failed"],
                 }).encode()
                 self._reply(200, body, "application/json")
 
