@@ -516,6 +516,36 @@ def test_server_pinned_path_equals_pageable_path(dev):
             np.testing.assert_allclose(got[key], cpu[key], rtol=1e-3, atol=1e-4)
 
 
+def test_packed_eval_step_on_card_equals_dense(dev):
+    """On the card the 3D-only step packs a host batch's edge rows (the
+    valid edges and one row a scene with padding) and runs a batch already
+    on the card, as a resident loader's, dense; both give the same outputs
+    at fp32 tolerance, with the two segment-max launches of a forward."""
+    from vlsat_tpu_torch.data.synthetic import make_batch
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.ops.kernels import segment_max
+    from vlsat_tpu_torch.train.step import make_eval_step, take_edge_rows
+
+    cfg = MMGNetConfig(num_obj_classes=20, num_rel_classes=7, point_feature_size=64,
+                       dim_node=64, dim_edge=64, dim_atten=32, num_heads=4, clip_feat_dim=64,
+                       fused_pointnet=True)
+    model = build_mmgnet(cfg, device=dev, seed=5)
+    batch = make_batch(seed=5, node_counts=(40, 7, 64, 23), bucket=64, num_points=32,
+                       feat_dim=64, num_obj_classes=20, num_rel_classes=7)
+    step = make_eval_step(model, branch_3d_only=True, device=dev)
+    outs, rows = [], []
+    for b in (batch, batch.to(dev)):
+        before = segment_max.launches
+        outs.append(step(model.state_dict(), b))
+        rows.append(take_edge_rows())
+        assert segment_max.launches == before + 2
+    slots = batch.edge_mask.numel()
+    assert rows == [(int(batch.edge_mask.sum()) + 3, slots), (slots, slots)]
+    for key in outs[1]:
+        torch.testing.assert_close(outs[0][key], outs[1][key], rtol=1e-5, atol=1e-5,
+                                   equal_nan=True, msg=key)
+
+
 # ------------------------------------------------------------------ runner
 
 def test_runner_epoch_and_validation_on_card(dev, tmp_path):

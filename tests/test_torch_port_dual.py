@@ -5,7 +5,10 @@ Same recipe as tests/test_torch_port_model.py: ``flax MMGNet.init`` from a
 seed -> ``interop.from_flax`` -> the port, both on the same ``make_batch``
 scenes, with the gate of tests/test_parity_torch.py (rtol 1e-3, atol 1e-4)
 on live rows of all four outputs.  The port's 3D outputs of the full forward
-must equal those of its 3D-only forward bit for bit.
+must equal those of its dense 3D-only forward bit for bit, and those of the
+3D-only eval step (the server's, which packs a host batch's edge rows)
+within one ulp on live rows (a GEMM over another number of rows may round
+the last bit otherwise) and at fp32 tolerance on padded ones.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from vlsat_tpu.models import MMGNet as FlaxMMGNet
 from vlsat_tpu.models import MMGNetConfig as FlaxConfig
 from vlsat_tpu_torch.interop.from_flax import flax_to_state_dict
 from vlsat_tpu_torch.models.mmgnet import MMGNet
-from vlsat_tpu_torch.train.step import make_eval_step
+from vlsat_tpu_torch.train.step import make_eval_step, take_edge_rows
 
 RTOL, ATOL = 1e-3, 1e-4
 KEYS = ("obj_logits_3d", "obj_logits_2d", "rel_cls_3d", "rel_cls_2d")
@@ -56,7 +59,10 @@ def _run(case: str, fused: bool):
     tb = to_torch(batch)
     got = make_eval_step(model, device="cpu")(state, tb)
     got_3d = make_eval_step(model, branch_3d_only=True, device="cpu")(state, tb)
-    return batch, want, got, got_3d
+    assert take_edge_rows()[0] < tb.edge_mask.numel()  # it packed
+    with torch.inference_mode():
+        dense_3d = torch.func.functional_call(model, state, (tb,), {"branch_3d_only": True})
+    return batch, want, got, (got_3d, dense_3d)
 
 
 def _assert_live_rows_match(got, want, batch):
@@ -75,11 +81,17 @@ def _assert_live_rows_match(got, want, batch):
     ("bucket16", False), ("full_width", True), ("gcn_aggr_add", False),
     ("gcn_aggr_mean", False), ("no_gcn_edge", False), ("single_label", False)])
 def test_dual_forward_matches_jax(case, fused):
-    batch, want, got, got_3d = _run(case, fused)
+    batch, want, got, (got_3d, dense_3d) = _run(case, fused)
     _assert_live_rows_match(got, want, batch)
-    assert sorted(got_3d) == ["obj_logits_3d", "rel_cls_3d"]
+    assert sorted(got_3d) == sorted(dense_3d) == ["obj_logits_3d", "rel_cls_3d"]
+    masks = {"obj": torch.from_numpy(np.array(batch.obj_mask)),
+             "rel": torch.from_numpy(np.array(batch.edge_mask))}
     for key in got_3d:
-        assert torch.equal(got[key], got_3d[key]), key
+        assert torch.equal(got[key], dense_3d[key]), key
+        live = masks[key.split("_")[0]]
+        torch.testing.assert_close(got_3d[key][live], got[key][live],
+                                   rtol=torch.finfo(torch.float32).eps, atol=0, msg=key)
+        torch.testing.assert_close(got_3d[key], got[key], equal_nan=True, msg=key)
 
 
 def test_dual_forward_on_the_library_attention_route(monkeypatch):

@@ -110,6 +110,41 @@ def test_exported_step_drives_batched_server(model, artifact):
         BatchedServer(model, eval_step=loaded)
 
 
+def test_artifact_stays_dense_beside_the_packed_server(model, artifact):
+    """An artifact holds the dense graph: its inputs are the six serving
+    arrays and every Linear runs on a (B, N) or the whole (B, E) grid.  A
+    server over it counts every edge slot as computed and answers like the
+    live server, whose 3D-only step packs its edge rows, within the serving
+    cells' limits (``benchmark/workloads``: obj_logit_gap 1.3e-3,
+    rel_prob_gap 1.5e-4)."""
+    loaded = load_serving_artifact(artifact[0], device="cpu")
+    graph = loaded._programs[BUCKET].graph
+    assert [n.name for n in graph.nodes if n.op == "placeholder"] == [
+        "obj_points", "obj_mask", "descriptor", "obj_2d_feats", "edge_index", "edge_mask"]
+    lead = {tuple(n.meta["val"].shape[:2]) for n in graph.nodes
+            if n.op == "call_function" and n.target is torch.ops.aten.linear.default}
+    assert lead == {(BATCH, BUCKET), (BATCH, BUCKET * (BUCKET - 1))}
+    rng = np.random.RandomState(1)
+    scenes = []
+    for n in (4, 2, 3, 4, 3):
+        pts = rng.randn(n, POINTS, 3).astype(np.float32)
+        scenes.append({"obj_points": pts - pts.mean(axis=1, keepdims=True),
+                       "descriptor": np.abs(rng.randn(n, 11)).astype(np.float32) + 0.1})
+    kw = dict(max_batch=BATCH, deadline_ms=50.0, buckets=(BUCKET,), feat_dim=CFG.clip_feat_dim,
+              num_rel_classes=7)
+    answers, counts = [], []
+    for srv in (BatchedServer(model, device="cpu", **kw), BatchedServer(eval_step=loaded, **kw)):
+        with srv:
+            answers.append([srv.predict(s, timeout=300.0) for s in scenes])
+        counts.append((srv.stats["edge_rows"], srv.stats["edge_slots"]))
+    (live_rows, slots), (frozen_rows, frozen_slots) = counts
+    assert live_rows < slots and frozen_rows == frozen_slots == slots
+    for a, b in zip(*answers):
+        np.testing.assert_array_equal(a["edge_index"], b["edge_index"])
+        assert np.abs(a["obj_logits"] - b["obj_logits"]).max() <= 1.3e-3
+        assert np.abs(a["rel_cls"] - b["rel_cls"]).max() <= 1.5e-4
+
+
 def test_shape_validation_errors(artifact):
     loaded = load_serving_artifact(artifact[0], device="cpu")
     with pytest.raises(ValueError, match="bucket"):

@@ -154,3 +154,87 @@ def test_entry_points_refuse_cuda_without_a_card():
         build_mmgnet(port_config(FlaxConfig(**NARROW)))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_eval_step(MMGNet(port_config(FlaxConfig(**NARROW))))
+
+
+def _served_batch(cfg, bucket, counts, pad_to, subset=False, seed=0):
+    """A host batch as the server builds it: scenes of ``counts`` nodes padded
+    to ``bucket``, then all-zero scenes up to ``pad_to`` (``pad_to_max``).
+    ``subset``: each scene keeps a random half of its directed edges, and its
+    edge rows are shuffled, so valid rows are not a prefix and some invalid
+    rows keep real endpoints (masked out, not (0, 0))."""
+    from vlsat_tpu_torch.data.synthetic import make_scene
+    from vlsat_tpu_torch.scene import collate, pad_scene
+
+    rng = np.random.RandomState(seed)
+    padded = []
+    for n in counts:
+        s = make_scene(rng, n, num_points=8, feat_dim=cfg.clip_feat_dim,
+                       num_obj_classes=cfg.num_obj_classes, num_rel_classes=cfg.num_rel_classes)
+        ei, rels = s["edge_index"], s["gt_rels"]
+        if subset:
+            keep = np.sort(rng.permutation(len(ei))[:max(len(ei) // 2, 1)])
+            ei, rels = ei[keep], rels[keep]
+        p = pad_scene(s["obj_points"], s["descriptor"], s["obj_2d_feats"], s["gt_class"], ei,
+                      rels, n_max=bucket, feat_dim=cfg.clip_feat_dim)
+        if subset:
+            order = rng.permutation(len(p["edge_mask"]))
+            for k in ("edge_index", "edge_mask", "gt_rels"):
+                p[k] = p[k][order]
+            real = np.flatnonzero(p["edge_mask"])[::3]
+            p["edge_mask"][real] = False  # masked edges with their endpoints
+        padded.append(p)
+    while len(padded) < pad_to:
+        padded.append({k: np.zeros_like(v) for k, v in padded[0].items()})
+    return collate(padded)
+
+
+@pytest.mark.parametrize("bucket,counts,pad_to,subset", [
+    (8, (5, 8, 3), 3, False),        # a full scene, no zero scene
+    (8, (8, 8), 4, False),           # no padded edge row in the real scenes
+    (12, (9, 12, 4), 6, False),
+    (12, (11, 6, 9), 5, True),       # valid rows not a prefix, masked real edges
+    (64, (40, 7, 64, 23), 6, False),
+    (64, (50, 33), 3, True),
+])
+def test_packed_3d_forward_equals_dense(bucket, counts, pad_to, subset):
+    """The 3D-only eval step on a host batch runs its per-edge layers on the
+    packed edge rows (``ops.graph.EdgeRows``); both outputs equal the dense
+    forward's in every row, padded rows and all-zero scenes included (their
+    NaNs where the dense forward has them), at fp32 tolerance."""
+    _assert_packed_equals_dense(MMGNetConfig(**NARROW), bucket, counts, pad_to, subset)
+
+
+@pytest.mark.parametrize("widths,bucket,counts,pad_to,subset", [
+    (dict(NARROW, gcn_aggr="add"), 12, (11, 6, 9), 5, True),
+    (dict(NARROW, gcn_aggr="mean"), 12, (11, 6, 9), 5, True),
+    (dict(NARROW, use_gcn_edge=False), 8, (5, 8, 3), 4, False),
+    (dict(NARROW, multi_rel_outputs=False), 8, (5, 8, 3), 4, True),
+    ({}, 8, (6, 8, 3), 4, False),
+], ids=["gcn_aggr_add", "gcn_aggr_mean", "no_gcn_edge", "single_label", "full_width"])
+def test_packed_3d_forward_equals_dense_per_config(widths, bucket, counts, pad_to, subset):
+    """As above for the config keys the registry wires (MODEL.GCN_AGGR,
+    USE_GCN_EDGE, multi_rel_outputs) and at the full widths."""
+    _assert_packed_equals_dense(MMGNetConfig(**widths), bucket, counts, pad_to, subset)
+
+
+def _assert_packed_equals_dense(cfg, bucket, counts, pad_to, subset):
+    from vlsat_tpu_torch.models.mmgnet import build_mmgnet
+    from vlsat_tpu_torch.train.step import take_edge_rows
+
+    model = build_mmgnet(cfg, device="cpu", seed=4)
+    for name, buf in model.named_buffers():  # non-trivial eval-mode BN statistics
+        buf.copy_(torch.rand(buf.shape) + (0.5 if name.endswith("running_var") else -0.5))
+    state = model.state_dict()
+    batch = _served_batch(cfg, bucket, counts, pad_to, subset)
+    with torch.inference_mode():
+        dense = torch.func.functional_call(model, state, (batch,), {"branch_3d_only": True})
+    take_edge_rows()
+    packed = make_eval_step(model, branch_3d_only=True, device="cpu")(state, batch)
+    rows, slots = take_edge_rows()
+    assert slots == batch.edge_mask.numel() and rows < slots
+    assert set(packed) == set(dense)
+    for key in dense:
+        assert packed[key].shape == dense[key].shape, key
+        torch.testing.assert_close(packed[key], dense[key], equal_nan=True, msg=key)
+    live = batch.edge_mask.numpy()
+    assert np.isfinite(packed["rel_cls_3d"].numpy()[live]).all()

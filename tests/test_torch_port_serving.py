@@ -19,6 +19,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from vlsat_tpu.data.synthetic import make_batch, make_scene
 from vlsat_tpu.models import MMGNet as FlaxMMGNet
@@ -27,6 +28,7 @@ from vlsat_tpu.serving import BatchedServer as FlaxServer
 from vlsat_tpu.train.step import make_eval_step as flax_eval_step
 from vlsat_tpu_torch.interop.from_flax import flax_to_state_dict
 from vlsat_tpu_torch.models.mmgnet import MMGNet, MMGNetConfig
+from vlsat_tpu_torch.scene import pick_bucket
 from vlsat_tpu_torch.serving import BatchedServer, bench_server
 
 REPO = Path(__file__).resolve().parents[1]
@@ -49,10 +51,10 @@ def _setup():
     return model, params, stats, cfg, flax_to_state_dict(params, stats, MMGNet(cfg))
 
 
-def _scenes():
+def _scenes(sizes=(3, 7, 5, 11, 4, 9)):  # buckets 4, 8 and 12
     rng = np.random.RandomState(0)
     out = []
-    for n in (3, 7, 5, 11, 4, 9):  # buckets 4, 8 and 12
+    for n in sizes:
         s = make_scene(rng, n, num_points=16, num_obj_classes=20, num_rel_classes=7)
         out.append({"obj_points": s["obj_points"], "descriptor": s["descriptor"]})
     return out
@@ -64,11 +66,14 @@ def _serve(server, scenes):
         return [f.result(timeout=120) for f in futs]
 
 
-@pytest.mark.parametrize("wire", ["float32", "float16"])
-def test_port_server_matches_jax_server(monkeypatch, wire):
+@pytest.mark.parametrize("wire,sizes", [
+    ("float32", (3, 7, 5, 11, 4, 9)), ("float16", (3, 7, 5, 11, 4, 9)),
+    ("float32", (3, 20, 7, 24, 5, 17)),  # mixed sizes padded to bucket 24
+], ids=["float32", "float16", "mixed24"])
+def test_port_server_matches_jax_server(monkeypatch, wire, sizes):
     monkeypatch.setenv("VLSAT_WIRE_DTYPE", wire)
     fmodel, params, stats, cfg, state = _setup()
-    scenes = _scenes()
+    scenes = _scenes(sizes)
     want = _serve(FlaxServer(flax_eval_step(fmodel, branch_3d_only=True), params, stats,
                              max_batch=4, deadline_ms=50.0, num_rel_classes=7), scenes)
     server = BatchedServer(MMGNet(cfg), state, device="cpu", max_batch=4,
@@ -76,6 +81,7 @@ def test_port_server_matches_jax_server(monkeypatch, wire):
     got = _serve(server, scenes)
     assert server.stats["scenes"] == len(scenes)
     assert server.stats["batches"] < len(scenes)
+    assert 0 < server.stats["edge_rows"] < server.stats["edge_slots"]  # packed edge rows
     for s, g, w in zip(scenes, got, want):
         n = s["obj_points"].shape[0]
         assert g["obj_logits"].shape == (n, 20)
@@ -102,6 +108,57 @@ def test_port_server_dual_forward_matches_jax_server(monkeypatch, branch_key):
         np.testing.assert_array_equal(g["edge_index"], w["edge_index"])
         for key in ("obj_logits", "rel_cls"):
             np.testing.assert_allclose(g[key], w[key], rtol=RTOL, atol=ATOL, err_msg=key)
+
+
+def _expected_edge_rows(batches, max_batch):
+    """(rows, slots) of ``batches`` (lists of node counts) padded to
+    ``max_batch`` scenes: every valid edge, one row for each scene with
+    padded edge rows (an all-zero scene has only those), of max_batch * E."""
+    rows = slots = 0
+    for counts in batches:
+        bucket = pick_bucket(max(counts))
+        e = bucket * (bucket - 1)
+        rows += sum(n * (n - 1) + (n < bucket) for n in counts) + max_batch - len(counts)
+        slots += max_batch * e
+    return rows, slots
+
+
+def test_server_counts_packed_edge_rows():
+    """The 3D-only server's step runs its edge layers on the valid edges
+    plus one row a scene with padding; ``stats`` and the ``serve.step``
+    spans count them against max_batch * E, also where the server is handed
+    the step inside a caller's wrapper.  The dual forward runs dense."""
+    from vlsat_tpu_torch.train.step import make_eval_step
+    from vlsat_tpu_torch.utils import profiling
+
+    _, _, _, cfg, state = _setup()
+    sizes = (3, 7, 5, 12, 4, 9)  # queued before the start: batches [3, 7, 5, 12], [4, 9]
+    scenes = _scenes(sizes)
+    kw = dict(max_batch=4, deadline_ms=200.0, num_rel_classes=7, feat_dim=64)
+    inner = make_eval_step(MMGNet(cfg), branch_3d_only=True, device="cpu")
+
+    def wrapped(_state, batch):  # a caller's timing wrapper, as the benchmark's
+        return inner(state, batch)
+
+    wrapped.device = inner.device
+    servers = {"3d": BatchedServer(MMGNet(cfg), state, device="cpu", **kw),
+               "wrapped": BatchedServer(eval_step=wrapped, **kw),
+               "dual": BatchedServer(MMGNet(cfg), state, device="cpu", branch_3d_only=False,
+                                     **kw)}
+    for name, server in servers.items():
+        futs = [server.submit(s) for s in scenes]
+        profiling.clear()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]), server:
+            for f in futs:
+                f.result(timeout=120)
+        assert server.stats["batches"] == 2, name
+        rows, slots = _expected_edge_rows([sizes[:4], sizes[4:]], 4)
+        if name == "dual":
+            rows = slots
+        assert (server.stats["edge_rows"], server.stats["edge_slots"]) == (rows, slots), name
+        steps = [sp.attrs for sp in profiling.spans() if sp.name == "serve.step"]
+        assert sum(a["edge_rows"] for a in steps) == rows, name
+        assert sum(a["edge_slots"] for a in steps) == slots, name
 
 
 def test_bench_server_reports_rates():

@@ -16,7 +16,8 @@ import torch
 from torch import nn
 
 from vlsat_tpu_torch.models.layers import DenseStack, HeadMLP, MaskedBatchNorm
-from vlsat_tpu_torch.ops.graph import gather_edge_endpoints, scatter_edges_to_nodes
+from vlsat_tpu_torch.ops.graph import (gather_edge_endpoints, scatter_edges_to_nodes,
+                                       unpack_edges)
 
 
 class FatEdgeAttention(nn.Module):
@@ -86,12 +87,28 @@ class GraphEdgeAttenNetwork(nn.Module):
 
     def forward(self, x, edge_feature, edge_index, edge_mask, rng=None):
         x_i, x_j = gather_edge_endpoints(x, edge_index)
+        msg, edge_new = self._edges(x_i, edge_feature, x_j, rng)
+        return self._nodes(x, msg, edge_index, edge_mask), edge_new
+
+    def forward_packed(self, x, edge_feature, edge_rows, edge_index, edge_mask):
+        """The eval-mode layer on the packed edge rows of ``edge_rows`` (an
+        ``ops.graph.EdgeRows``): ``edge_feature`` (R, D) in, the updated (x,
+        (R, D) edge_feature) out.  The messages go back to the (B, E, D)
+        layout for the aggregation."""
+        flat, ends = x.flatten(0, 1), edge_rows.ends
+        msg, edge_new = self._edges(flat[ends[:, 0]], edge_feature, flat[ends[:, 1]])
+        msg = unpack_edges(msg, edge_rows.src, x.shape[0])
+        return self._nodes(x, msg, edge_index, edge_mask), edge_new
+
+    def _edges(self, x_i, edge_feature, x_j, rng=None):
         nodes = (self.edgeatten_nn_edge_fc0_node_i(x_i),
                  self.edgeatten_nn_edge_fc0_node_j(x_j))
-        msg, edge_new = self.edgeatten(x_i, edge_feature, x_j, nodes, rng)
+        return self.edgeatten(x_i, edge_feature, x_j, nodes, rng)
+
+    def _nodes(self, x, msg, edge_index, edge_mask):
         agg = scatter_edges_to_nodes(msg, edge_index, edge_mask, num_nodes=x.shape[1],
                                      aggr=self.aggr, use_kernel=not self.training)
-        return self.prop(torch.cat([x, agg], dim=-1)), edge_new
+        return self.prop(torch.cat([x, agg], dim=-1))
 
 
 class TripletGCN(nn.Module):

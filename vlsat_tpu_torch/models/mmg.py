@@ -10,7 +10,8 @@ layer when depth == 1), in the f3d, f2d, e3d, e2d order of the JAX module;
 in training mode every dropout mask is drawn from the one ``rng`` generator
 in that call order.
 ``with_2d=False`` runs the 3D path alone; its outputs equal the 3D outputs
-of the full stack, since the 2D branch only reads the 3D stream.
+of the full stack, since the 2D branch only reads the 3D stream.  In eval
+mode that path can run its edge layers on packed edge rows (``edge_rows``).
 ``MMGSingle`` is the 3D-only variant's stack: GCN layers alone, no attention.
 """
 
@@ -44,7 +45,10 @@ class MMG(nn.Module):
         self.drop = Dropout(dropout_atten)
 
     def forward(self, f3d, f2d, e3d, e2d, edge_index, obj_mask, edge_mask, obj_center,
-                with_2d: bool = True, rng=None):
+                with_2d: bool = True, rng=None, edge_rows=None):
+        """``edge_rows`` (an ``ops.graph.EdgeRows``; the 3D path alone, in
+        eval mode): ``e3d`` holds the packed edge rows it names, (R, D) in
+        and out, and the GCN layers run on them (``forward_packed``)."""
         node_mask = obj_mask[:, None, None, :] & obj_mask[:, None, :, None]
         bias = self.self_attn_fc(pairwise_distance_bias(obj_center.detach()))
         for i in range(self.depth):
@@ -53,7 +57,11 @@ class MMG(nn.Module):
             if with_2d:
                 f2d = getattr(self, f"cross_attn_{i}")(f2d, f3d, f3d, mask=node_mask,
                                                       bias=bias, rng=rng)
-            f3d, e3d = getattr(self, f"gcn_3d_{i}")(f3d, e3d, edge_index, edge_mask, rng)
+            gcn_3d = getattr(self, f"gcn_3d_{i}")
+            if edge_rows is None:
+                f3d, e3d = gcn_3d(f3d, e3d, edge_index, edge_mask, rng)
+            else:
+                f3d, e3d = gcn_3d.forward_packed(f3d, e3d, edge_rows, edge_index, edge_mask)
             if with_2d:
                 f2d, e2d = getattr(self, f"gcn_2d_{i}")(f2d, e2d, edge_index, edge_mask, rng)
                 e2d = getattr(self, f"cross_attn_rel_{i}")(e2d, e3d, e3d, q_mask=edge_mask,

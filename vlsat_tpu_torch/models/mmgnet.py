@@ -8,9 +8,11 @@
                         -> obj_logits_{3d,2d} = exp(obj_logit_scale) * cosine classifier
 
 ``branch_3d_only=True`` (the serving protocol) skips every 2D module; the 3D
-outputs are the same.  ``istrain=True`` adds the train-time outputs of the
-distillation losses (the mimic features, ``triplet_projector_2d``'s
-projected 2D pair features and ``logit_scale``).  The module's mode decides
+outputs are the same.  In eval mode it can run its per-edge layers on the
+batch's computed edge rows alone (``edge_rows``), packed across scenes.
+``istrain=True`` adds the train-time outputs of the distillation losses (the
+mimic features, ``triplet_projector_2d``'s projected 2D pair features and
+``logit_scale``).  The module's mode decides
 dropout, BatchNorm statistics and the kernel routes, as JAX's
 ``deterministic`` does: ``model.eval()`` with ``istrain=True`` is JAX's
 ``istrain=True, deterministic=True``.  The config switches of the in21k
@@ -34,7 +36,7 @@ from vlsat_tpu_torch.models.layers import (AdapterModel, Dropout, MaskedBatchNor
                                            PointNetEncoder)
 from vlsat_tpu_torch.models.mmg import MMG
 from vlsat_tpu_torch.ops.descriptor import edge_descriptor
-from vlsat_tpu_torch.ops.graph import gather_edge_endpoints
+from vlsat_tpu_torch.ops.graph import EdgeRows, gather_edge_endpoints, unpack_edges
 from vlsat_tpu_torch.ops.norm import safe_normalize
 from vlsat_tpu_torch.scene import SceneBatch
 
@@ -176,12 +178,18 @@ class MMGNet(nn.Module):
         self.triplet_projector_2d = TripletProjector(2 * cfg.dim_node + cfg.dim_edge)
 
     def forward(self, batch: SceneBatch, istrain: bool = False,
-                branch_3d_only: bool = False, rng: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                branch_3d_only: bool = False, rng: Optional[torch.Generator] = None,
+                edge_rows: Optional[EdgeRows] = None) -> Dict[str, torch.Tensor]:
         """``rng`` draws every dropout mask in training mode (a generator on
-        the batch's device)."""
+        the batch's device).  ``edge_rows`` (``ops.graph.EdgeRows``, on the
+        batch's device; the 3D-only eval forward) runs every per-edge stage
+        (descriptor, relation encoder, the GCN layers' edge side, relation
+        head) on the packed rows it names instead of the whole (B, E) grid;
+        ``rel_cls_3d`` is the same dense (B, E, R) tensor."""
         if istrain and branch_3d_only:
             raise ValueError("branch_3d_only is an inference mode")
+        if edge_rows is not None and not (branch_3d_only and not self.training):
+            raise ValueError("edge_rows is for the 3D-only forward in eval mode")
         with_2d = not branch_3d_only
         cfg = self.cfg
         obj = self.obj_encoder(batch.obj_points)
@@ -192,7 +200,11 @@ class MMGNet(nn.Module):
         if cfg.use_spatial:
             obj = torch.cat([obj, spatial_features(batch.descriptor)], dim=-1)
 
-        edge_feat = edge_descriptor(batch.descriptor, batch.edge_index).detach()
+        if edge_rows is None:
+            edge_feat = edge_descriptor(batch.descriptor, batch.edge_index).detach()
+        else:  # the packed rows over the flat node table, as one scene
+            edge_feat = edge_descriptor(batch.descriptor.flatten(0, 1)[None],
+                                        edge_rows.ends[None])[0]
         rel_2d = self.rel_encoder_2d(edge_feat[..., None, :]) if with_2d else None
         rel_3d = self.rel_encoder_3d(edge_feat[..., None, :])
         obj_2d = None
@@ -202,7 +214,11 @@ class MMGNet(nn.Module):
 
         f3d, f2d, e3d, e2d = self.mmg(obj, obj_2d, rel_3d, rel_2d, batch.edge_index,
                                       batch.obj_mask, batch.edge_mask,
-                                      batch.descriptor[..., :3], with_2d=with_2d, rng=rng)
+                                      batch.descriptor[..., :3], with_2d=with_2d, rng=rng,
+                                      edge_rows=edge_rows)
+        rel_cls_3d = self.rel_predictor_3d(e3d, rng)
+        if edge_rows is not None:
+            rel_cls_3d = unpack_edges(rel_cls_3d, edge_rows.src, batch.num_scenes)
         if cfg.cosine_classifier:
             scale = torch.exp(self.obj_logit_scale)
             head = lambda fc, x: scale * fc(safe_normalize(x))
@@ -210,7 +226,7 @@ class MMGNet(nn.Module):
             scale = f3d.new_ones(())
             head = lambda fc, x: fc(x)
         out = {"obj_logits_3d": head(self.obj_predictor_3d, f3d),
-               "rel_cls_3d": self.rel_predictor_3d(e3d, rng)}
+               "rel_cls_3d": rel_cls_3d}
         if with_2d:
             out["obj_logits_2d"] = head(self.obj_predictor_2d, f2d)
             out["rel_cls_2d"] = self.rel_predictor_2d(e2d, rng)

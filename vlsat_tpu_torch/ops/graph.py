@@ -7,12 +7,19 @@ invalid (padded) edges to a dump segment past the last node.
 
 Empty-segment semantics match torch-scatter: a node with no valid incoming
 edge aggregates to 0, while a node whose true max is negative keeps it.
+
+``EdgeRows`` packs a batch's edge rows for the 3D-only eval forward, which
+runs its per-edge layers on the rows it names and not on the whole padded
+(B, E) grid: ``select_edge_rows`` picks them on the host, ``unpack_edges``
+restores (B, E).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from vlsat_tpu_torch.ops.kernels.segment_max import segment_max, segment_max_plain
@@ -25,6 +32,53 @@ def gather_edge_endpoints(x: torch.Tensor, edge_index: torch.Tensor
     b = torch.arange(x.shape[0], device=x.device)[:, None]
     ei = edge_index.long()
     return x[b, ei[..., 0]], x[b, ei[..., 1]]
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeRows:
+    """The edge rows of a (B, E) batch that a packed forward computes, R of
+    them, in the order of their flat slots ``b * E + e``
+    (``select_edge_rows`` picks them on the host):
+
+      ends  (R, 2)   each row's (subject, object) in the batch's flat
+                     (B * N) node table
+      src   (B * E,) the packed row whose value each slot takes
+
+    ``unpack_edges(packed, src, B)`` is equal, row for row, to the dense
+    (B, E, ...) result."""
+
+    ends: torch.Tensor
+    src: torch.Tensor
+
+
+def select_edge_rows(edge_mask: np.ndarray, edge_index: np.ndarray, num_nodes: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """``EdgeRows``' ``ends`` (R, 2) and ``src`` (B * E,), int32 numpy, of
+    a host batch's (B, E) ``edge_mask`` and (B, E, 2) ``edge_index`` over
+    ``num_nodes`` node slots a scene.  Every valid edge is computed.  The
+    padded rows of a scene whose ``edge_index`` is (0, 0) all see the same
+    inputs (node 0 at both ends, the same descriptor), so the first of them
+    is computed and ``src`` sends the others to it; an invalid row with
+    other endpoints is computed on its own."""
+    b, e = edge_mask.shape
+    scenes = np.arange(b)
+    edge_index = np.ascontiguousarray(edge_index, dtype=np.int32)
+    shared = ~edge_mask & (edge_index.view(np.int64)[..., 0] == 0)
+    first = shared.argmax(axis=1)
+    keep = ~shared
+    keep[scenes, first] |= shared[scenes, first]
+    rows = np.flatnonzero(keep)
+    ends = edge_index.reshape(-1, 2)[rows] + (rows // e * num_nodes).astype(np.int32)[:, None]
+    src = np.empty((b, e), np.int32)
+    flat = src.reshape(-1)
+    flat[rows] = np.arange(len(rows))
+    np.copyto(src, flat[scenes * e + first][:, None], where=shared)
+    return ends, flat
+
+
+def unpack_edges(packed: torch.Tensor, src: torch.Tensor, batch: int) -> torch.Tensor:
+    """(R, ...) packed edge rows -> (B, E, ...) through ``EdgeRows.src``."""
+    return packed[src].unflatten(0, (batch, -1))
 
 
 def _scatter_plain(edge_data: torch.Tensor, edge_index: torch.Tensor,

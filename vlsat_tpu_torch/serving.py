@@ -19,7 +19,8 @@ Spans (``utils.profiling``, recorded while a profiler session is active):
 and batch ids), ``serve.collect`` a batch (first request taken to batch
 closed) and ``serve.batch`` (batch id, scenes, bucket, valid edges, request
 ids) with its children ``serve.prepare`` (pad, collate, wire, pin),
-``serve.step`` (the step's launches enqueued), ``serve.fetch`` (the outputs'
+``serve.step`` (the step's launches enqueued; the edge rows it computed
+of the batch's slots), ``serve.fetch`` (the outputs'
 copy to the host, which waits for the card) and ``serve.resolve`` (unpad,
 the futures and their callbacks).
 """
@@ -41,7 +42,7 @@ from vlsat_tpu_torch.data.wire import encode_wire
 from vlsat_tpu_torch.device import resolve_device
 from vlsat_tpu_torch.scene import (
     DEFAULT_NODE_BUCKETS, collate, full_edge_index, pad_scene, pick_bucket)
-from vlsat_tpu_torch.train.step import make_eval_step
+from vlsat_tpu_torch.train.step import make_eval_step, take_edge_rows
 from vlsat_tpu_torch.utils import profiling
 
 
@@ -92,8 +93,11 @@ class BatchedServer:
         self._thread: Optional[threading.Thread] = None
         self._request_ids = itertools.count()
         self._batch_ids = itertools.count()
-        # "failed": batches whose run raised (their clients get the error)
-        self.stats = {"scenes": 0, "batches": 0, "batch_size_sum": 0, "failed": 0}
+        # "failed": batches whose run raised (their clients get the error);
+        # "edge_rows" of "edge_slots": the edge rows the steps computed, of
+        # the padded batches' B * E (equal where a step runs dense)
+        self.stats = {"scenes": 0, "batches": 0, "batch_size_sum": 0, "failed": 0,
+                      "edge_rows": 0, "edge_slots": 0}
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "BatchedServer":
@@ -194,8 +198,12 @@ class BatchedServer:
                 if self._pin:  # the eval step's copy to the card is then asynchronous
                     batch = batch.replace(**{k: v.pin_memory() for k, v in vars(batch).items()
                                              if v is not None})
-            with profiling.span("serve.step"):  # the host enqueues the step's launches
+            with profiling.span("serve.step") as st:  # the host enqueues the step's launches
+                take_edge_rows()
                 out = self._eval(self._state, batch)
+                # None from an exported artifact, which runs dense
+                rows, slots = take_edge_rows() or (batch.edge_mask.numel(),) * 2
+                st.set(edge_rows=rows, edge_slots=slots)
             with profiling.span("serve.fetch"):  # waits for the card, then copies
                 ol = out[f"obj_logits_{self.branch_key}"].cpu().numpy()
                 rc = out[f"rel_cls_{self.branch_key}"].cpu().numpy()
@@ -203,6 +211,8 @@ class BatchedServer:
                 self.stats["scenes"] += len(items)
                 self.stats["batches"] += 1
                 self.stats["batch_size_sum"] += len(items)
+                self.stats["edge_rows"] += rows
+                self.stats["edge_slots"] += slots
                 for k, (fut, n, ei) in enumerate(zip(futs, counts, eis)):
                     fut.set_result({"obj_logits": ol[k, :n], "rel_cls": rc[k, :len(ei)],
                                     "edge_index": ei})

@@ -27,7 +27,8 @@ global batch's gradient and logs the global loss.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Sequence, Tuple
+import threading
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +38,7 @@ from vlsat_tpu_torch.data.resident import gather_rows
 from vlsat_tpu_torch.data.wire import decode_wire
 from vlsat_tpu_torch.device import resolve_device
 from vlsat_tpu_torch.models.mmgnet import MMGNet
+from vlsat_tpu_torch.ops.graph import EdgeRows, select_edge_rows
 from vlsat_tpu_torch.parallel import mesh
 from vlsat_tpu_torch.scene import SceneBatch
 from vlsat_tpu_torch.train.losses import vlsat_total_loss
@@ -228,6 +230,21 @@ def make_resident_multi_train_step(model: nn.Module, optimizer: OptimizerSpec,
     return bound
 
 
+# the edge rows that the last eval step of a thread computed, and its slots
+_edge_report = threading.local()
+
+
+def take_edge_rows() -> Optional[Tuple[int, int]]:
+    """(edge rows computed, edge slots B * E) of the last ``make_eval_step``
+    call on this thread since the last take, or None; a dense call computes
+    every slot.  A thread-local and not an attribute of the step, since a
+    caller such as ``serving.BatchedServer`` may be handed the step inside
+    wrappers of its own (the benchmark's timing wrappers copy only
+    ``.device``)."""
+    last, _edge_report.last = getattr(_edge_report, "last", None), None
+    return last
+
+
 def make_eval_step(model: nn.Module, branch_3d_only: bool = False, device=None
                    ) -> Callable[[Mapping[str, torch.Tensor], SceneBatch],
                                  Dict[str, torch.Tensor]]:
@@ -239,7 +256,14 @@ def make_eval_step(model: nn.Module, branch_3d_only: bool = False, device=None
     ``state.model.state_dict()``, which shares the model's storage).  The dual-branch forward by default,
     as in JAX; ``branch_3d_only=True`` is the serving mode of ``MMGNet``
     and raises for any other model, as in JAX (step.py:203-211).  Every
-    model of the registry runs through it."""
+    model of the registry runs through it.
+
+    A 3D-only step given a batch on the host (the server's, a streaming
+    loader's on the CPU) builds the batch's ``ops.graph.EdgeRows`` from the
+    host's ``edge_mask`` and ships them with it, and the forward runs its
+    per-edge layers on those rows alone; a batch already on the device (a
+    resident loader's on the card) and the dual forward run dense.  Each
+    call reports its rows and slots (``take_edge_rows``)."""
     if branch_3d_only and not isinstance(model, MMGNet):
         raise ValueError(
             f"branch_3d_only is an MMGNet serving mode, got {type(model).__name__}")
@@ -252,10 +276,19 @@ def make_eval_step(model: nn.Module, branch_3d_only: bool = False, device=None
                   ) -> Dict[str, torch.Tensor]:
         if model.training:  # the model was trained since
             model.eval()
+        kw, slots = kwargs, batch.edge_mask.numel()
+        _edge_report.last = (slots, slots)
         with torch.inference_mode():
+            if branch_3d_only and batch.edge_mask.device.type == "cpu":
+                packed = [torch.from_numpy(a) for a in select_edge_rows(
+                    batch.edge_mask.numpy(), batch.edge_index.numpy(), batch.num_nodes)]
+                _edge_report.last = (len(packed[0]), slots)
+                if dev.type == "cuda":  # copied with the batch, asynchronously
+                    packed = [t.pin_memory() for t in packed]
+                kw = dict(kwargs, edge_rows=EdgeRows(
+                    *(t.to(dev, non_blocking=True).long() for t in packed)))
             batch = decode_wire(batch.to(dev, non_blocking=True))
-            return torch.func.functional_call(model, dict(state), (batch,), kwargs,
-                                              strict=True)
+            return torch.func.functional_call(model, dict(state), (batch,), kw, strict=True)
 
     eval_step.device = dev  # where eval.engine.evaluate sends the batches
     return eval_step
