@@ -47,7 +47,7 @@ from vlsat_tpu_torch.models.registry import build_model
 from vlsat_tpu_torch.models.variants import SGPN, SGPNConfig
 from vlsat_tpu_torch.train.optim import label_params, make_optimizer
 from vlsat_tpu_torch.train.state import create_train_state
-from vlsat_tpu_torch.train.step import make_eval_step
+from vlsat_tpu_torch.train.step import has_3d_only_mode, make_eval_step
 
 RTOL, ATOL = 1e-3, 1e-4
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -452,6 +452,6 @@ def test_registry_config_and_loss_equal_jax(name):
     assert getattr(loss, "func", loss).__name__ == getattr(jloss, "func", jloss).__name__
     if name == "SGPN":
         assert model.rel_encoder.conv1.in_features == 7
-    if not isinstance(model, MMGNet):
+    if not has_3d_only_mode(model):
         with pytest.raises(ValueError, match="MMGNet serving mode"):
             make_eval_step(model, branch_3d_only=True, device="cpu")

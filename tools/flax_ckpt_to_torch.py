@@ -9,8 +9,10 @@ and the unscored ones) is restored, carried across with
 ``vlsat_tpu_torch.interop.from_flax.train_state_from_flax`` (weights,
 BatchNorm statistics, the AdamW moments and counts of every group, the
 schedule at the step) and saved with its ``eva_res`` by the port's
-``CheckpointManager`` under ``OUT/NAME/<exp>/checkpoints``.  Run the port on
-them with ``PATH`` set to ``OUT``, e.g.
+``CheckpointManager`` under ``OUT/NAME/<exp>/checkpoints``.  The carried
+state takes flax's LayerNorm epsilon (1e-6) with the weights; a port run
+that loads the saved steps builds the registry's, the original's 1e-5.
+Run the port on them with ``PATH`` set to ``OUT``, e.g.
 ``python -m vlsat_tpu_torch.main --config cfg.json --mode eval --loadbest``
 after setting ``"PATH": OUT`` in the JSON.
 

@@ -17,6 +17,12 @@ A leaf that the port's model has no slot for raises, and so does a slot
 that no leaf fills: the flax tree must come from an ``istrain=True`` init
 (or a training checkpoint), which holds the triplet projectors.
 
+A model that takes flax weights takes flax's numerics with them:
+``flax_to_state_dict`` sets the epsilon of every LayerNorm of the model to
+flax's 1e-6 (the registry builds torch's 1e-5, the original's).
+``tree_to_state_dict`` is the same mapping without that, for trees that
+carry the original's weights (``interop.torch_import``).
+
 ``train_state_from_flax`` also carries a JAX training run across: optax's
 per-group Adam moments and counts become the AdamW state, and the schedule
 is put at the run's step, so both packages resume one mid-run state.
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from vlsat_tpu_torch.models.transformer import FLAX_LN_EPS, set_layer_norm_eps
 from vlsat_tpu_torch.train.optim import OptimizerSpec, set_schedule_position
 from vlsat_tpu_torch.train.state import TrainState, create_train_state
 
@@ -88,7 +95,16 @@ def _port_params(params: Mapping, expected: Dict[str, Tuple[int, ...]]
 
 def flax_to_state_dict(params: Mapping, batch_stats: Mapping,
                        model: nn.Module) -> Dict[str, torch.Tensor]:
-    """Convert flax variables to the state_dict of the port's ``model``."""
+    """Convert flax variables to the state_dict of the port's ``model``, and
+    give ``model``'s LayerNorms flax's epsilon."""
+    set_layer_norm_eps(model, FLAX_LN_EPS)
+    return tree_to_state_dict(params, batch_stats, model)
+
+
+def tree_to_state_dict(params: Mapping, batch_stats: Mapping,
+                       model: nn.Module) -> Dict[str, torch.Tensor]:
+    """A flax-shaped tree (``params``, ``batch_stats``) as the state_dict of
+    the port's ``model``, leaf for leaf; ``model`` is left as it is."""
     expected = _expected(model)
     out = _port_params(params, expected)
     for path, arr in _flatten(batch_stats).items():

@@ -11,6 +11,7 @@ and ``state_dict_from_directory`` does both for a checkpoint directory.
 Layout conversions:
   * torch Linear weight (out, in)      -> flax Dense kernel (in, out)
   * torch Conv1d k=1 weight (out,in,1) -> squeeze + transpose
+  * torch Conv2d 1x1 weight (out,in,1,1) -> reshape + transpose (SGGpoint)
   * LayerNorm weight/bias              -> scale/bias
   * BatchNorm1d weight/bias            -> params scale/bias;
     running_mean/var                   -> batch_stats mean/var
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vlsat_tpu_torch.interop.from_flax import flax_to_state_dict
+from vlsat_tpu_torch.interop.from_flax import tree_to_state_dict
 
 
 def _t(w) -> np.ndarray:
@@ -268,6 +269,84 @@ def import_sgfn(module_state_dicts: Mapping[str, Mapping[str, np.ndarray]],
     return {"params": params, "batch_stats": {}}
 
 
+def _conv(sd, prefix, bias: bool = True) -> Dict[str, np.ndarray]:
+    """A 1x1 Conv1d/Conv2d (out, in, 1[, 1]) -> a Dense kernel (in, out)."""
+    w = np.asarray(sd[f"{prefix}.weight"], np.float32)
+    out = {"kernel": w.reshape(w.shape[0], -1).T}
+    if bias:
+        out["bias"] = _v(sd[f"{prefix}.bias"])
+    return out
+
+
+def _bare(sd, prefix) -> Dict[str, np.ndarray]:
+    """A Linear without bias."""
+    p = f"{prefix}." if prefix else ""
+    return {"kernel": _t(sd[f"{p}weight"])}
+
+
+def import_edgegcn(sd: Mapping[str, np.ndarray], prefix: str) -> Dict[str, Any]:
+    """SGGpoint's EdgeGCN (model.py:136-206) -> ``EdgeGCN`` params: each
+    torch-geometric GCNConv's ``lin.weight`` and its ``bias`` (added after
+    the propagation; the port applies the Dense after it, the same
+    function) to ``node_GConv*_fc``, the 1x1 Conv1d of ``edge_MLP1`` /
+    ``edge_MLP2`` (``Sequential(Conv1d, ReLU)``) to ``edge_MLP*_fc``."""
+    p = f"{prefix}."
+    out = {name: _dense(sd, p + name) for name in
+           ("edge_attentionND", "node_attentionND", "node_indicator_reduction")}
+    for i in (1, 2):
+        out[f"node_GConv{i}_fc"] = {"kernel": _t(sd[f"{p}node_GConv{i}.lin.weight"]),
+                                    "bias": _v(sd[f"{p}node_GConv{i}.bias"])}
+        out[f"edge_MLP{i}_fc"] = _conv(sd, f"{p}edge_MLP{i}.0")
+    return out
+
+
+def import_sggpoint(module_state_dicts: Mapping[str, Mapping[str, np.ndarray]]
+                    ) -> Dict[str, Any]:
+    """Assemble the flax-shaped variables of ``SGGpoint`` from the
+    original's per-child checkpoints (VL-SAT's src/model/SGGpoint/model.py;
+    ``benchmark/reference/sggpoint.py`` lays them out): the DGCNN's 1x1
+    Conv2d/Conv1d kernels (``backbone.conv{1..5}.0``) and their
+    BatchNorm2d/1d (``.1``: weight, bias, running statistics), the Linears,
+    the adapter, ``edge_gcn``'s distance MLP, attentions and EdgeGCNs
+    (``import_edgegcn``), the cosine classifiers and their
+    ``obj_logit_scale``, the EdgeMLP relation heads (``edge_linear1``,
+    ``edge_BnReluDp.0``, ``edge_linear2``) and the triplet projectors.
+    Returns {"params": ..., "batch_stats": ...}."""
+    sds = module_state_dicts
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    bb = sds["backbone"]
+    params["backbone"], stats["backbone"] = {}, {}
+    for i in range(1, 6):
+        params["backbone"][f"conv{i}_fc"] = _conv(bb, f"conv{i}.0", bias=False)
+        params["backbone"][f"conv{i}_bn"], stats["backbone"][f"conv{i}_bn"] = _batchnorm(
+            bb, f"conv{i}.1")
+    for name in ("mlp_3d", "edge_mlp_3d", "edge_mlp_2d", "obj_mlp_3d", "obj_mlp_2d",
+                 "rel_mlp_3d", "rel_mlp_2d"):
+        params[name] = _dense(sds[name], "")
+    params["clip_adapter"] = import_adapter(sds["clip_adapter"])
+    gcn = sds["edge_gcn"]
+    params["edge_gcn"] = {"self_attn_fc": import_dist_mlp(gcn, "self_attn_fc"),
+                          "edgegcn_3d": import_edgegcn(gcn, "edgegcn_3d"),
+                          "edgegcn_2d": import_edgegcn(gcn, "edgegcn_2d")}
+    for name in ("self_attn", "cross_attn", "cross_attn_rel"):
+        params["edge_gcn"][name] = import_mha(gcn, name)
+    for branch in ("3d", "2d"):
+        params[f"obj_classifier_{branch}"] = _bare(sds[f"obj_classifier_{branch}"], "")
+        head = sds[f"rel_classifier_{branch}"]
+        bn, bn_stats = _batchnorm(head, "edge_BnReluDp.0")
+        params[f"rel_classifier_{branch}"] = {"edge_linear1": _bare(head, "edge_linear1"),
+                                              "edge_bn": bn,
+                                              "edge_linear2": _bare(head, "edge_linear2")}
+        stats[f"rel_classifier_{branch}"] = {"edge_bn": bn_stats}
+        tp = sds[f"triplet_projector_{branch}"]
+        params[f"triplet_projector_{branch}"] = {"fc0": _dense(tp, "0"), "fc1": _dense(tp, "3")}
+    scale = sds["obj_logit_scale"]
+    params["obj_logit_scale"] = np.asarray(
+        scale.get("obj_logit_scale", next(iter(scale.values()))), np.float32).reshape(())
+    return {"params": params, "batch_stats": stats}
+
+
 def import_from_directory(ckpt_dir: str, suffix: str = ".pth",
                           depth: int = 2) -> Dict[str, Any]:
     """Load a reference experiment checkpoint directory (one file per
@@ -290,7 +369,7 @@ def to_state_dict(variables: Mapping[str, Any], model: nn.Module
                   ) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` of ``model`` from an ``import_*`` tree; a
     slot the tree does not fill raises."""
-    return flax_to_state_dict(variables["params"], variables["batch_stats"], model)
+    return tree_to_state_dict(variables["params"], variables["batch_stats"], model)
 
 
 def state_dict_from_directory(ckpt_dir: str, model: nn.Module,

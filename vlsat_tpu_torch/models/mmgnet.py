@@ -35,6 +35,7 @@ from vlsat_tpu_torch.device import resolve_device
 from vlsat_tpu_torch.models.layers import (AdapterModel, Dropout, MaskedBatchNorm,
                                            PointNetEncoder)
 from vlsat_tpu_torch.models.mmg import MMG
+from vlsat_tpu_torch.models.transformer import FLAX_LN_EPS, set_layer_norm_eps
 from vlsat_tpu_torch.ops.descriptor import edge_descriptor
 from vlsat_tpu_torch.ops.graph import EdgeRows, gather_edge_endpoints, unpack_edges
 from vlsat_tpu_torch.ops.norm import safe_normalize
@@ -49,7 +50,9 @@ class MMGNetConfig:
     The in21k switches: ``cosine_classifier=False`` makes the object heads
     plain Linears with ``logit_scale`` 1, ``use_adapter=False`` feeds
     ``obj_2d_feats`` to the 2D branch as they are, ``use_mlp_3d=False``
-    drops the point_feature_size -> dim_node - 8 bottleneck."""
+    drops the point_feature_size -> dim_node - 8 bottleneck.  ``ln_eps``: the
+    LayerNorms' epsilon (flax's by default; the registry builds the
+    original's, ``models.transformer``)."""
 
     num_obj_classes: int = 160
     num_rel_classes: int = 26
@@ -71,6 +74,7 @@ class MMGNetConfig:
     cosine_classifier: bool = True
     use_adapter: bool = True
     use_mlp_3d: bool = True
+    ln_eps: float = FLAX_LN_EPS
 
 
 class RelPredictor(nn.Module):
@@ -176,6 +180,7 @@ class MMGNet(nn.Module):
         self.obj_predictor_3d = nn.Linear(cfg.dim_node, cfg.num_obj_classes)
         self.obj_predictor_2d = nn.Linear(cfg.dim_node, cfg.num_obj_classes)
         self.triplet_projector_2d = TripletProjector(2 * cfg.dim_node + cfg.dim_edge)
+        set_layer_norm_eps(self, cfg.ln_eps)
 
     def forward(self, batch: SceneBatch, istrain: bool = False,
                 branch_3d_only: bool = False, rng: Optional[torch.Generator] = None,

@@ -24,7 +24,8 @@ from vlsat_tpu_torch.models.layers import (AdapterModel, Dropout, MaskedBatchNor
                                            PointNetEncoder)
 from vlsat_tpu_torch.models.mmgnet import (MMGNetConfig, RelPredictor, TripletProjector,
                                            spatial_features)
-from vlsat_tpu_torch.models.transformer import DistanceBiasMLP, MultiHeadAttention
+from vlsat_tpu_torch.models.transformer import (DistanceBiasMLP, MultiHeadAttention,
+                                               set_layer_norm_eps)
 from vlsat_tpu_torch.ops.attention import pairwise_distance_bias
 from vlsat_tpu_torch.ops.descriptor import edge_descriptor
 from vlsat_tpu_torch.ops.graph import gather_edge_endpoints
@@ -164,6 +165,7 @@ class MMTeacher(nn.Module):
                                     nn.Parameter(torch.tensor(math.log(1 / 0.07))))
             self.add_module(f"obj_predictor_{tower}", nn.Linear(d, cfg.num_obj_classes))
             self.add_module(f"triplet_projector_{tower}", TripletProjector(3 * d))
+        set_layer_norm_eps(self, cfg.ln_eps)
 
     def forward(self, batch: SceneBatch, istrain: bool = False,
                 rng: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:

@@ -3,7 +3,10 @@
 
 Every entry of the JAX registry is built, with the same config fields,
 loss partials and in21k widths.  ``fused_pointnet`` stays off in every
-entry, as in JAX.
+entry, as in JAX.  Every LayerNorm takes the original's epsilon, torch's
+1e-5 (``models.transformer.TORCH_LN_EPS``), where the JAX package has
+flax's 1e-6: the registry builds the model that the original's
+checkpoints (``interop.torch_import``) load into.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from vlsat_tpu_torch.models.mmgnet import MMGNet, MMGNetConfig
 from vlsat_tpu_torch.models.mmteacher import MMTeacher, mmteacher_loss
 from vlsat_tpu_torch.models.sggpoint import (SGGpoint, SGGpointBaseline, SGGpointConfig,
                                              sggpoint_baseline_loss, sggpoint_loss)
+from vlsat_tpu_torch.models.transformer import TORCH_LN_EPS
 from vlsat_tpu_torch.models.variants import SGFN, SGPN, MMGNetSingle, SGFNConfig, SGPNConfig
 from vlsat_tpu_torch.train import losses
 
@@ -45,7 +49,8 @@ def model_config(name: str, num_obj: int, num_rel: int, mcfg):
                 + 3 * bool(mcfg.get("USE_NORMAL", False)))
     gnn = dict(dim_atten=mcfg.DIM_ATTEN, num_heads=mcfg.NUM_HEADS, depth=mcfg.N_LAYERS,
                gcn_aggr=mcfg.GCN_AGGR, dropout_atten=mcfg.DROP_OUT_ATTEN,
-               use_gcn_edge=mcfg.USE_GCN_EDGE, use_spatial=mcfg.USE_SPATIAL)
+               use_gcn_edge=mcfg.USE_GCN_EDGE, use_spatial=mcfg.USE_SPATIAL,
+               ln_eps=TORCH_LN_EPS)
     common = dict(num_obj_classes=num_obj, num_rel_classes=num_rel,
                   multi_rel_outputs=mcfg.multi_rel_outputs, point_channels=channels)
     if name in ("Mmgnet", "MmgnetSingle"):
@@ -73,7 +78,7 @@ def model_config(name: str, num_obj: int, num_rel: int, mcfg):
                              "cannot add them")
         return SGGpointConfig(num_obj_classes=num_obj, num_rel_classes=num_rel,
                               num_heads=mcfg.NUM_HEADS, use_spatial=mcfg.USE_SPATIAL,
-                              point_channels=channels)
+                              point_channels=channels, ln_eps=TORCH_LN_EPS)
     if name == "SGGpointBaseline":
         return SGGpointConfig(num_obj_classes=num_obj, num_rel_classes=num_rel,
                               point_channels=channels)

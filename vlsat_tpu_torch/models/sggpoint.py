@@ -12,6 +12,11 @@ needs the input width that flax infers, the point channels
 (``point_channels``); the 2D features are ``dim`` wide.  Neither
 model reaches a kernel of ``ops.kernels``: the JAX models reach no Pallas
 call.
+
+``SGGpoint(batch, branch_3d_only=True)`` is its serving forward, the
+paper's deployment: the 3D branch alone (the 3D outputs never read the 2D
+branch).  The backbone runs inside the span ``model.dgcnn``
+(``utils.profiling``; slots B*N, points P and k, from the shapes).
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from torch.nn import functional as F
 
 from vlsat_tpu_torch.models.layers import AdapterModel, Dropout, MaskedBatchNorm
 from vlsat_tpu_torch.models.mmgnet import TripletProjector, spatial_features
-from vlsat_tpu_torch.models.transformer import DistanceBiasMLP, MultiHeadAttention
+from vlsat_tpu_torch.models.transformer import (FLAX_LN_EPS, DistanceBiasMLP,
+                                               MultiHeadAttention, set_layer_norm_eps)
 from vlsat_tpu_torch.ops.attention import pairwise_distance_bias
 from vlsat_tpu_torch.ops.descriptor import edge_descriptor
 from vlsat_tpu_torch.ops.dgcnn import graph_feature
@@ -37,6 +43,7 @@ from vlsat_tpu_torch.ops.norm import safe_normalize
 from vlsat_tpu_torch.scene import SceneBatch
 from vlsat_tpu_torch.train.losses import (cosine_mimic_loss, cross_entropy,
                                           dynamic_rel_weights, rel_mimic_l1, weighted_bce)
+from vlsat_tpu_torch.utils import profiling
 
 _STAGES = (64, 64, 128, 256)  # EdgeConv widths (reference SGGpoint/model.py:97-128)
 
@@ -143,14 +150,18 @@ class MMEdgeGCN(nn.Module):
 
     def forward(self, f3d, f2d, e3d, e2d, edge_index, obj_mask, edge_mask, obj_center,
                 rng=None):
+        """Both branches; ``f2d`` and ``e2d`` None runs the 3D branch alone
+        (the self-attention and ``edgegcn_3d``) and returns None for them."""
         mask = obj_mask[:, None, None, :] & obj_mask[:, None, :, None]
-        emask = edge_mask[:, None, None, :] & edge_mask[:, None, :, None]
         bias = self.self_attn_fc(pairwise_distance_bias(obj_center.detach()))
         f3d = self.self_attn(f3d, f3d, f3d, mask=mask, bias=bias, rng=rng)
-        f2d = self.cross_attn(f2d, f3d, f3d, mask=mask, bias=bias, rng=rng)
+        if f2d is not None:
+            f2d = self.cross_attn(f2d, f3d, f3d, mask=mask, bias=bias, rng=rng)
         f3d, e3d = self.edgegcn_3d(f3d, e3d, edge_index, edge_mask, rng)
-        f2d, e2d = self.edgegcn_2d(f2d, e2d, edge_index, edge_mask, rng)
-        e2d = self.cross_attn_rel(e2d, e3d, e3d, mask=emask, rng=rng)
+        if f2d is not None:
+            f2d, e2d = self.edgegcn_2d(f2d, e2d, edge_index, edge_mask, rng)
+            emask = edge_mask[:, None, None, :] & edge_mask[:, None, :, None]
+            e2d = self.cross_attn_rel(e2d, e3d, e3d, mask=emask, rng=rng)
         return f3d, e3d, f2d, e2d
 
 
@@ -164,8 +175,9 @@ def _edge_init(node_feats, edge_index):
 class SGGpointConfig:
     """The fields of ``vlsat_tpu.models.sggpoint.SGGpointConfig``, with the
     same defaults, plus the input width flax infers from the batch:
-    ``point_channels`` (3, plus 3 for each of RGB and normals).  The 2D
-    features are ``dim`` wide."""
+    ``point_channels`` (3, plus 3 for each of RGB and normals), and
+    ``ln_eps`` (as ``MMGNetConfig``'s).  The 2D features are ``dim``
+    wide."""
 
     num_obj_classes: int = 160
     num_rel_classes: int = 26
@@ -174,6 +186,7 @@ class SGGpointConfig:
     use_spatial: bool = True
     knn_k: int = 20
     point_channels: int = 3
+    ln_eps: float = FLAX_LN_EPS
 
 
 class SGGpoint(nn.Module):
@@ -214,32 +227,46 @@ class SGGpoint(nn.Module):
         self.rel_classifier_2d = EdgeMLPHead(d, cfg.num_rel_classes)
         self.triplet_projector_3d = TripletProjector(3 * d)
         self.triplet_projector_2d = TripletProjector(3 * d)
+        set_layer_norm_eps(self, cfg.ln_eps)
 
     def forward(self, batch: SceneBatch, istrain: bool = False,
+                branch_3d_only: bool = False,
                 rng: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        x = self.backbone(batch.obj_points, batch.obj_mask)
+        """The dual forward, or with ``branch_3d_only`` (an inference mode)
+        the 3D branch alone: ``obj_logits_3d`` and ``rel_cls_3d``, equal to
+        the dual forward's."""
+        if istrain and branch_3d_only:
+            raise ValueError("branch_3d_only is an inference mode")
+        pts = batch.obj_points
+        with profiling.span("model.dgcnn", slots=pts.shape[0] * pts.shape[1],
+                            points=pts.shape[2], k=min(self.backbone.k, pts.shape[2])):
+            x = self.backbone(pts, batch.obj_mask)
         f3d = x.amax(dim=2)                                     # pool the points
         mimic_3d = f3d[..., :512]
         f3d = torch.cat([self.mlp_3d(f3d), spatial_features(batch.descriptor)], dim=-1)
 
         ed = edge_descriptor(batch.descriptor, batch.edge_index).detach()
         e3d = torch.cat([self.edge_mlp_3d(_edge_init(f3d, batch.edge_index)), ed], dim=-1)
-        obj_2d = self.clip_adapter(batch.obj_2d_feats).detach()
-        e2d = torch.cat([self.edge_mlp_2d(_edge_init(obj_2d, batch.edge_index)), ed], dim=-1)
+        obj_2d = e2d = None
+        if not branch_3d_only:
+            obj_2d = self.clip_adapter(batch.obj_2d_feats).detach()
+            e2d = torch.cat([self.edge_mlp_2d(_edge_init(obj_2d, batch.edge_index)), ed],
+                            dim=-1)
 
         g3, ge3, g2, ge2 = self.edge_gcn(f3d, obj_2d, e3d, e2d, batch.edge_index,
                                          batch.obj_mask, batch.edge_mask,
                                          batch.descriptor[..., :3], rng)
         g3 = self.obj_mlp_3d(torch.cat([f3d, g3], -1))
-        g2 = self.obj_mlp_2d(torch.cat([obj_2d, g2], -1))
         ge3 = self.rel_mlp_3d(torch.cat([e3d, ge3], -1))
-        ge2 = self.rel_mlp_2d(torch.cat([e2d, ge2], -1))
-
         scale = torch.exp(self.obj_logit_scale)
         out = {"obj_logits_3d": scale * self.obj_classifier_3d(safe_normalize(g3)),
-               "obj_logits_2d": scale * self.obj_classifier_2d(safe_normalize(g2)),
-               "rel_cls_3d": self.rel_classifier_3d(ge3, batch.edge_mask, rng),
-               "rel_cls_2d": self.rel_classifier_2d(ge2, batch.edge_mask, rng)}
+               "rel_cls_3d": self.rel_classifier_3d(ge3, batch.edge_mask, rng)}
+        if branch_3d_only:
+            return out
+        g2 = self.obj_mlp_2d(torch.cat([obj_2d, g2], -1))
+        ge2 = self.rel_mlp_2d(torch.cat([e2d, ge2], -1))
+        out.update(obj_logits_2d=scale * self.obj_classifier_2d(safe_normalize(g2)),
+                   rel_cls_2d=self.rel_classifier_2d(ge2, batch.edge_mask, rng))
         if istrain:
             def pair(g, ge, projector):
                 gi, gj = gather_edge_endpoints(g, batch.edge_index)

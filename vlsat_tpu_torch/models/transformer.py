@@ -1,8 +1,12 @@
 """Post-norm multi-head attention, the distance-bias MLP and the sinusoid
 position tables (counterpart of ``vlsat_tpu/models/transformer.py``).
 
-The JAX package's LayerNorms are flax's, with eps 1e-6 (torch's default is
-1e-5), so every LayerNorm here sets eps=1e-6.
+The epsilon of every LayerNorm is a field of the model's build
+(``ln_eps`` of its config; ``set_layer_norm_eps`` applies it): the
+original's torch ``nn.LayerNorm`` uses 1e-5 (``TORCH_LN_EPS``), which the
+registry builds; the JAX package's flax LayerNorms use 1e-6
+(``FLAX_LN_EPS``), which the config dataclasses default to and which
+``interop.from_flax`` gives a model it bridges flax weights into.
 """
 
 from __future__ import annotations
@@ -13,7 +17,17 @@ from torch import nn
 from vlsat_tpu_torch.models.layers import Dropout
 from vlsat_tpu_torch.ops.attention import masked_attention_bnhd
 
-LN_EPS = 1e-6
+FLAX_LN_EPS = 1e-6  # flax.linen.LayerNorm's default
+TORCH_LN_EPS = 1e-5  # torch.nn.LayerNorm's default, the original's
+
+
+def set_layer_norm_eps(module: nn.Module, eps: float) -> nn.Module:
+    """Set the epsilon of every ``nn.LayerNorm`` inside ``module``; returns
+    ``module``."""
+    for m in module.modules():
+        if isinstance(m, nn.LayerNorm):
+            m.eps = float(eps)
+    return module
 
 
 class MultiHeadAttention(nn.Module):
@@ -33,7 +47,7 @@ class MultiHeadAttention(nn.Module):
         self.fc_v = nn.Linear(d_in, hd)
         self.fc_o = nn.Linear(hd, d_model)
         self.drop = Dropout(dropout)
-        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.layer_norm = nn.LayerNorm(d_model, eps=FLAX_LN_EPS)
 
     def forward(self, q, k, v, *, mask=None, bias=None, bias_way="add",
                 q_mask=None, k_mask=None, rng=None):
@@ -76,7 +90,7 @@ class PositionWiseFeedForward(nn.Module):
         self.fc1 = nn.Linear(d_model, d_ff)
         self.fc2 = nn.Linear(d_ff, d_model)
         self.drop = Dropout(dropout)
-        self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.layer_norm = nn.LayerNorm(d_model, eps=FLAX_LN_EPS)
 
     def forward(self, x, rng=None):
         h = self.drop(torch.relu(self.fc1(x)), rng)
@@ -91,9 +105,9 @@ class DistanceBiasMLP(nn.Module):
     def __init__(self, num_heads: int):
         super().__init__()
         self.fc0 = nn.Linear(4, 32)
-        self.ln0 = nn.LayerNorm(32, eps=LN_EPS)
+        self.ln0 = nn.LayerNorm(32, eps=FLAX_LN_EPS)
         self.fc1 = nn.Linear(32, 32)
-        self.ln1 = nn.LayerNorm(32, eps=LN_EPS)
+        self.ln1 = nn.LayerNorm(32, eps=FLAX_LN_EPS)
         self.fc2 = nn.Linear(32, num_heads)
 
     def forward(self, w):

@@ -32,7 +32,8 @@ from vlsat_tpu_torch.models.layers import Dropout, MaskedBatchNorm, PointNetEnco
 from vlsat_tpu_torch.models.mmg import MMGSingle
 from vlsat_tpu_torch.models.mmgnet import (MMGNetConfig, RelPredictor, TripletProjector,
                                            spatial_features)
-from vlsat_tpu_torch.models.transformer import DistanceBiasMLP, MultiHeadAttention
+from vlsat_tpu_torch.models.transformer import (FLAX_LN_EPS, DistanceBiasMLP,
+                                               MultiHeadAttention, set_layer_norm_eps)
 from vlsat_tpu_torch.ops.attention import pairwise_distance_bias
 from vlsat_tpu_torch.ops.descriptor import edge_descriptor
 from vlsat_tpu_torch.ops.graph import gather_edge_endpoints
@@ -141,7 +142,8 @@ class GraphEdgeAttenNetworkLayers(nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class SGFNConfig:
-    """``vlsat_tpu.models.variants.SGFNConfig`` plus ``point_channels``."""
+    """``vlsat_tpu.models.variants.SGFNConfig`` plus ``point_channels`` and
+    ``ln_eps`` (as ``MMGNetConfig``'s)."""
 
     num_obj_classes: int = 160
     num_rel_classes: int = 26
@@ -156,6 +158,7 @@ class SGFNConfig:
     use_gcn_edge: bool = True
     multi_rel_outputs: bool = True
     point_channels: int = 3
+    ln_eps: float = FLAX_LN_EPS
 
 
 class SGFN(nn.Module):
@@ -174,6 +177,7 @@ class SGFN(nn.Module):
         self.obj_predictor = ObjClsHead(cfg.dim_node, cfg.num_obj_classes)
         self.rel_predictor = RelPredictor(cfg.edge_feature_size, cfg.num_rel_classes,
                                           multi_label=cfg.multi_rel_outputs)
+        set_layer_norm_eps(self, cfg.ln_eps)
 
     def forward(self, batch: SceneBatch, istrain: bool = False,
                 rng: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:

@@ -20,7 +20,8 @@ and batch ids), ``serve.collect`` a batch (first request taken to batch
 closed) and ``serve.batch`` (batch id, scenes, bucket, valid edges, request
 ids) with its children ``serve.prepare`` (pad, collate, wire, pin),
 ``serve.step`` (the step's launches enqueued; the edge rows it computed
-of the batch's slots), ``serve.fetch`` (the outputs'
+of the batch's slots, and the batch's valid instances of its instance
+slots), ``serve.fetch`` (the outputs'
 copy to the host, which waits for the card) and ``serve.resolve`` (unpad,
 the futures and their callbacks).
 """
@@ -42,7 +43,7 @@ from vlsat_tpu_torch.data.wire import encode_wire
 from vlsat_tpu_torch.device import resolve_device
 from vlsat_tpu_torch.scene import (
     DEFAULT_NODE_BUCKETS, collate, full_edge_index, pad_scene, pick_bucket)
-from vlsat_tpu_torch.train.step import make_eval_step, take_edge_rows
+from vlsat_tpu_torch.train.step import make_eval_step, take_edge_rows, take_instances
 from vlsat_tpu_torch.utils import profiling
 
 
@@ -59,7 +60,8 @@ class BatchedServer:
     (numpy arrays) for the scene's n valid instances and e directed edges.
     ``state`` is a ``state_dict`` for ``model`` (by default its own); it is
     copied to the device once.  ``branch_3d_only`` picks the eval step's
-    forward (the 3D branch alone, or the dual forward) and ``branch_key``
+    forward (the 3D branch alone, a mode of ``MMGNet`` and ``SGGpoint``, or
+    the dual forward) and ``branch_key``
     the branch whose outputs ("3d" or "2d") the futures carry.
     """
 
@@ -95,9 +97,10 @@ class BatchedServer:
         self._batch_ids = itertools.count()
         # "failed": batches whose run raised (their clients get the error);
         # "edge_rows" of "edge_slots": the edge rows the steps computed, of
-        # the padded batches' B * E (equal where a step runs dense)
+        # the padded batches' B * E (equal where a step runs dense);
+        # "instances" of "instance_slots": the valid instances of their B * N
         self.stats = {"scenes": 0, "batches": 0, "batch_size_sum": 0, "failed": 0,
-                      "edge_rows": 0, "edge_slots": 0}
+                      "edge_rows": 0, "edge_slots": 0, "instances": 0, "instance_slots": 0}
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "BatchedServer":
@@ -200,10 +203,14 @@ class BatchedServer:
                                              if v is not None})
             with profiling.span("serve.step") as st:  # the host enqueues the step's launches
                 take_edge_rows()
+                take_instances()
                 out = self._eval(self._state, batch)
                 # None from an exported artifact, which runs dense
                 rows, slots = take_edge_rows() or (batch.edge_mask.numel(),) * 2
-                st.set(edge_rows=rows, edge_slots=slots)
+                insts, inst_slots = take_instances() or (int(batch.obj_mask.sum()),
+                                                         batch.obj_mask.numel())
+                st.set(edge_rows=rows, edge_slots=slots, instances=insts,
+                       instance_slots=inst_slots)
             with profiling.span("serve.fetch"):  # waits for the card, then copies
                 ol = out[f"obj_logits_{self.branch_key}"].cpu().numpy()
                 rc = out[f"rel_cls_{self.branch_key}"].cpu().numpy()
@@ -213,6 +220,8 @@ class BatchedServer:
                 self.stats["batch_size_sum"] += len(items)
                 self.stats["edge_rows"] += rows
                 self.stats["edge_slots"] += slots
+                self.stats["instances"] += insts
+                self.stats["instance_slots"] += inst_slots
                 for k, (fut, n, ei) in enumerate(zip(futs, counts, eis)):
                     fut.set_result({"obj_logits": ol[k, :n], "rel_cls": rc[k, :len(ei)],
                                     "edge_index": ei})

@@ -27,6 +27,7 @@ global batch's gradient and logs the global loss.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import threading
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -230,8 +231,10 @@ def make_resident_multi_train_step(model: nn.Module, optimizer: OptimizerSpec,
     return bound
 
 
-# the edge rows that the last eval step of a thread computed, and its slots
+# the edge rows that the last eval step of a thread computed, and its slots;
+# the valid instances of its host batch, and its instance slots
 _edge_report = threading.local()
+_instance_report = threading.local()
 
 
 def take_edge_rows() -> Optional[Tuple[int, int]]:
@@ -245,6 +248,21 @@ def take_edge_rows() -> Optional[Tuple[int, int]]:
     return last
 
 
+def take_instances() -> Optional[Tuple[int, int]]:
+    """(valid instances, instance slots B * N) of the host batch of the last
+    ``make_eval_step`` call on this thread since the last take, or None (a
+    batch already on the device: counting would wait for it).  Kept as
+    ``take_edge_rows`` keeps its counts."""
+    last, _instance_report.last = getattr(_instance_report, "last", None), None
+    return last
+
+
+def has_3d_only_mode(model: nn.Module) -> bool:
+    """Whether ``model``'s forward takes ``branch_3d_only`` (``MMGNet``,
+    ``SGGpoint``)."""
+    return "branch_3d_only" in inspect.signature(model.forward).parameters
+
+
 def make_eval_step(model: nn.Module, branch_3d_only: bool = False, device=None
                    ) -> Callable[[Mapping[str, torch.Tensor], SceneBatch],
                                  Dict[str, torch.Tensor]]:
@@ -254,19 +272,23 @@ def make_eval_step(model: nn.Module, branch_3d_only: bool = False, device=None
     ``torch.inference_mode()`` with the weights of ``state`` (the model's
     ``state_dict`` keys, on ``device``; a trained state's
     ``state.model.state_dict()``, which shares the model's storage).  The dual-branch forward by default,
-    as in JAX; ``branch_3d_only=True`` is the serving mode of ``MMGNet``
-    and raises for any other model, as in JAX (step.py:203-211).  Every
-    model of the registry runs through it.
+    as in JAX; ``branch_3d_only=True`` is the serving mode of the models
+    that have one (``MMGNet``, ``SGGpoint``: ``has_3d_only_mode``) and
+    raises for any other model (JAX has it for ``MMGNet`` alone,
+    step.py:203-211).  Every model of the registry runs through it.
 
-    A 3D-only step given a batch on the host (the server's, a streaming
-    loader's on the CPU) builds the batch's ``ops.graph.EdgeRows`` from the
-    host's ``edge_mask`` and ships them with it, and the forward runs its
-    per-edge layers on those rows alone; a batch already on the device (a
-    resident loader's on the card) and the dual forward run dense.  Each
-    call reports its rows and slots (``take_edge_rows``)."""
-    if branch_3d_only and not isinstance(model, MMGNet):
-        raise ValueError(
-            f"branch_3d_only is an MMGNet serving mode, got {type(model).__name__}")
+    An ``MMGNet`` 3D-only step given a batch on the host (the server's, a
+    streaming loader's on the CPU) builds the batch's ``ops.graph.EdgeRows``
+    from the host's ``edge_mask`` and ships them with it, and the forward
+    runs its per-edge layers on those rows alone; a batch already on the
+    device (a resident loader's on the card), ``SGGpoint`` and the dual
+    forward run dense.  Each call reports its rows and slots
+    (``take_edge_rows``) and, for a host batch, its valid instances and
+    instance slots (``take_instances``)."""
+    if branch_3d_only and not has_3d_only_mode(model):
+        raise ValueError(f"branch_3d_only is an MMGNet serving mode (SGGpoint has one "
+                         f"too), got {type(model).__name__}")
+    packs = branch_3d_only and isinstance(model, MMGNet)
     kwargs = {"branch_3d_only": True} if branch_3d_only else {}
     dev = resolve_device(device)
     _fp32()
@@ -278,8 +300,11 @@ def make_eval_step(model: nn.Module, branch_3d_only: bool = False, device=None
             model.eval()
         kw, slots = kwargs, batch.edge_mask.numel()
         _edge_report.last = (slots, slots)
+        on_host = batch.obj_mask.device.type == "cpu"
+        _instance_report.last = ((int(batch.obj_mask.sum()), batch.obj_mask.numel())
+                                 if on_host else None)
         with torch.inference_mode():
-            if branch_3d_only and batch.edge_mask.device.type == "cpu":
+            if packs and on_host:
                 packed = [torch.from_numpy(a) for a in select_edge_rows(
                     batch.edge_mask.numpy(), batch.edge_index.numpy(), batch.num_nodes)]
                 _edge_report.last = (len(packed[0]), slots)

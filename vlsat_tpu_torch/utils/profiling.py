@@ -13,10 +13,11 @@ in-memory buffer of the last ``MAX_SPANS``; ``spans()`` returns them and
 The one switch: spans record while a ``torch.profiler`` session is active
 anywhere in the process (``torch.autograd.profiler._is_profiler_enabled``,
 process-global, set by the profiler's ``start`` and ``stop``).  Off, a span
-site reads that flag and returns a shared no-op context.  On a thread that
-the profiler records itself, a span also opens
-``torch.profiler.record_function(name)``, so it sits in the profiler's trace
-on that trace's clock.
+site reads that flag and returns a shared no-op context.  On, a span also
+opens ``torch.profiler.record_function(name)``, so it sits in the
+profiler's trace on that trace's clock wherever the profiler records its
+thread: the thread that started the profiler, and every thread under
+``profile_all_threads`` (whose own state reads off on the other threads).
 
 ``trace()`` records a region with ``torch.profiler`` (the host, and the
 card's kernels when there is one) into a Chrome trace under
@@ -117,7 +118,8 @@ _OFF = _Off()
 
 
 class _On:
-    __slots__ = ("name", "attrs", "id", "parent", "start", "_rf", "_stack", "_tid")
+    __slots__ = ("name", "attrs", "id", "parent", "start", "_rf", "_profiled", "_stack",
+                 "_tid")
 
     def __init__(self, name: str, attrs: dict):
         self.name, self.attrs = name, attrs
@@ -132,22 +134,20 @@ class _On:
         self.parent = self._stack[-1] if self._stack else None
         self.id = next(_ids)
         self._stack.append(self.id)
-        self._rf = None
-        if torch._C._autograd._profiler_enabled():  # this thread is profiled
-            self._rf = torch.profiler.record_function(self.name)
-            self._rf.__enter__()
+        self._profiled = torch._C._autograd._profiler_enabled()  # this thread's state
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
         self.start = time.perf_counter_ns()
         return self
 
     def __exit__(self, kind, exc, tb):
         end = time.perf_counter_ns()
-        if self._rf is not None:
-            self._rf.__exit__(kind, exc, tb)
+        self._rf.__exit__(kind, exc, tb)
         self._stack.pop()
         if kind is not None:
             self.attrs["error"] = kind.__name__
         _buffer.append((self.name, self.start, end, self._tid, self.id, self.parent, self.attrs,
-                        "profiled" if self._rf is not None else "thread"))
+                        "profiled" if self._profiled else "thread"))
         return False
 
 
