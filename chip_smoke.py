@@ -7,13 +7,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. build the CUDA kernels of ``vlsat_tpu_torch/csrc`` with nvcc (sm_90a);
 2. hold each kernel against its plain PyTorch twin on the card at the
    serving path's shapes (node buckets 16, 48 and 64, 32 scenes; the fused
-   PointNet also in its point-chunked v2 configuration): segment-max must be
+   PointNet also in its point-chunked v2 configuration; the EdgeConv
+   kernel at the served SGGpoint room's buckets 8 and 64, P=128, k=20, in
+   each of the DGCNN's four stages): segment-max and EdgeConv must be
    bit-equal, PointNet within rtol 1e-4 / atol 1e-5 (3xTF32 products on
    the tensor cores against cuBLAS fp32);
 3. time each kernel, its twin and the one-call library yardstick with CUDA
-   events, and compute each kernel's bound from its shapes: segment-max by
-   bytes, PointNet by operations at the 3xTF32 rate (three TF32 products
-   per fp32 product at 495 TFLOP/s), with the share of the bound reached;
+   events (for EdgeConv the dense stage it replaces, and the projection and
+   kernel together), and compute each kernel's bound from its shapes:
+   segment-max and EdgeConv by bytes, PointNet by operations at the 3xTF32
+   rate (three TF32 products per fp32 product at 495 TFLOP/s), with the
+   share of the bound reached;
 4. build the full-width MMGNet (768/512/256, 8 heads, depth 2, 160 objects,
    26 predicates, fused PointNet) from a seeded torch.Generator, through the
    package's names (``from vlsat_tpu_torch.models import MMGNet,
@@ -98,13 +102,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
     MODEL widths with seeded weights; each evaluated by
     ``eval.engine.evaluate`` at B=32 over phase 8's 5-9-node split (finite
     metrics; segment-max launched 2, 2, 0, 4, 4, 0 and 0 times per batch,
-    counters at 0 just before), its card forward equal to a CPU forward at
+    the EdgeConv kernel 4 times per batch for the SGGpoint family and
+    never elsewhere, counters at 0 just before), its card forward equal to a CPU forward at
     the model gate on one batch with object and predicate ranks
     bit-equal (for the SGGpoint family the (point, stage) kNN neighbour
     sets of card and CPU are counted, more than 1e-3 of them differing
     fails, and the gate holds on every scene whose sets all agree), a
     profiled pass at bucket 12; 10 timed train steps at B=8 with the
-    registry's loss and text targets (no kernel launch), a profiled few,
+    registry's loss and text targets (no kernel launch: training runs the
+    dense EdgeConv), a profiled few,
     the loss falling over 8 steps on one batch, and one fp64 step card
     against CPU (loss rtol 1e-4, every gradient leaf at the gate, every
     neighbour set equal); then ``main --mode train`` (1 epoch) and
@@ -427,6 +433,80 @@ def check_pointnet(dev, rng) -> list:
                 "library_ms": None,
             }
             log(f"{name} bucket {n}: within rtol 1e-4/atol 1e-5 of its twin; "
+                + json.dumps(row))
+            rows.append(row)
+    return rows
+
+
+EDGECONV_BUCKETS = (8, 64)  # the served SGGpoint room's smallest and largest buckets
+EDGECONV_STAGES = ((3, 64), (64, 64), (64, 128), (128, 256))  # the DGCNN's (C_in, C_out)
+
+
+def check_edgeconv(dev, rng) -> list:
+    """The EdgeConv kernel at the served shapes (B=32, P=128, k=20, each
+    stage): bit-equal to its twin on the card from the same projection, and
+    timed against its bytes bound, the twin and the dense stage it
+    replaces (gather, Linear, eval BatchNorm, leaky ReLU, max over k)."""
+    from torch.nn import functional as F
+
+    from vlsat_tpu_torch.ops import dgcnn
+    from vlsat_tpu_torch.ops.kernels import edgeconv as K
+
+    eps, p, k = 1e-5, 128, 20
+    rows = []
+    for n in EDGECONV_BUCKETS:
+        for c_in, c_out in EDGECONV_STAGES:
+            x = rng.randn(BATCH, n, p, c_in).astype(np.float32)
+            if c_in > 3:  # a later stage's input is a leaky ReLU's output
+                x = np.where(x > 0, x, 0.2 * x)
+            x[BATCH // 2:, n // 2:] = 0.0  # padded slots: all-zero clouds
+            x = torch.from_numpy(x).to(dev)
+            weight = torch.from_numpy((rng.randn(c_out, 2 * c_in) / np.sqrt(2 * c_in)
+                                       ).astype(np.float32)).to(dev)
+            gamma = rng.randn(c_out)
+            gamma[::2] = -np.abs(gamma[::2])  # negative scales: no max/min shortcut passes
+            mean, var, scale, shift = (torch.from_numpy(v.astype(np.float32)).to(dev) for v in (
+                rng.randn(c_out) * 0.2, rng.rand(c_out) + 0.5, gamma, rng.randn(c_out) * 0.1))
+            uw, idx = dgcnn.project_pairs(x, weight), dgcnn.knn_indices(x, k)
+            before = K.launches
+            got = K.edgeconv_max_cuda(uw, idx, mean, var, scale, shift, eps)
+            want = K.edgeconv_max_plain(uw, idx, mean, var, scale, shift, eps)
+            torch.cuda.synchronize()
+            if K.launches != before + 1:
+                fail(f"edgeconv_max: {K.launches - before} launches for one call")
+            if not torch.equal(got, want):
+                fail(f"edgeconv_max differs from its twin at bucket {n}, stage {c_in}-{c_out}: "
+                     f"max abs {(got - want).abs().max().item()}")
+
+            def dense():
+                h = F.linear(dgcnn.graph_feature(x, k=k, idx=idx), weight)
+                h = (h - mean) / torch.sqrt(var + eps) * scale + shift
+                return F.leaky_relu(h, 0.2).amax(dim=-2)
+
+            m = BATCH * n
+            nbytes = uw.numel() * 4 + idx.numel() * 8 + 4 * c_out * 4 + m * p * c_out * 4
+            ms = cuda_ms(lambda: K.edgeconv_max_cuda(uw, idx, mean, var, scale, shift, eps))
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            iters = 20 if n <= 8 else 5  # a bucket-64 dense stage moves up to 5.4 GB a pass
+            row = {
+                "name": "edgeconv_max", "route": "cuda",
+                "source": "vlsat_tpu_torch/csrc/edgeconv.cu",
+                "replaces": "none: XLA's dense EdgeConv (vlsat_tpu/models/sggpoint.py DGCNN)",
+                "shape": f"B={BATCH} N={n} P={p} k={k} C_in={c_in} C_out={c_out}",
+                "max_abs_err": (got - want).abs().max().item(),
+                "ms": ms,
+                "plain_ms": cuda_ms(lambda: K.edgeconv_max_plain(
+                    uw, idx, mean, var, scale, shift, eps), iters=iters, warmup=1),
+                "bound_ms": bound_ms,
+                "bound_by": "bytes",
+                "bound_rate": "HBM3 at 3.35 TB/s",
+                "share_of_bound": bound_ms / ms,
+                "library_ms": cuda_ms(dense, iters=iters, warmup=1),
+                "stage_ms": cuda_ms(lambda: K.edgeconv_max_cuda(
+                    dgcnn.project_pairs(x, weight), idx, mean, var, scale, shift, eps)),
+            }
+            del got, want
+            log(f"edgeconv_max bucket {n}, stage {c_in}-{c_out}: bit-equal to its twin; "
                 + json.dumps(row))
             rows.append(row)
     return rows
@@ -1107,19 +1187,21 @@ class OneBucket:
 
 
 def reset_launches() -> None:
-    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+    from vlsat_tpu_torch.ops.kernels import edgeconv, pointnet_kernel, segment_max
 
     segment_max.launches = 0
+    edgeconv.launches = 0
     pointnet_kernel.launches = 0
     pointnet_kernel.launches_v2 = 0
 
 
 def read_launches() -> dict:
-    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+    from vlsat_tpu_torch.ops.kernels import edgeconv, pointnet_kernel, segment_max
 
     return {"segment_max": segment_max.launches,
             "pointnet_fused": pointnet_kernel.launches - pointnet_kernel.launches_v2,
-            "pointnet_fused_v2": pointnet_kernel.launches_v2}
+            "pointnet_fused_v2": pointnet_kernel.launches_v2,
+            "edgeconv_max": edgeconv.launches}
 
 
 @contextlib.contextmanager
@@ -1614,7 +1696,7 @@ def runner(dev) -> dict:
     train_launches = read_launches()
     validations = RUNNER_EPOCHS + 1  # one per epoch, then the closing validation(save=True)
     if train_launches != {"segment_max": 4 * rows * validations, "pointnet_fused": 0,
-                          "pointnet_fused_v2": 0}:
+                          "pointnet_fused_v2": 0, "edgeconv_max": 0}:
         fail(f"runner, train: launches {train_launches}; want {4 * rows * validations} "
              f"segment-max ({validations} validations of {rows} batches, 4 each, none in a "
              "train step) and no PointNet")
@@ -1751,6 +1833,10 @@ def runner(dev) -> dict:
 # family aggregates by mean and add (EdgeGCN), never by max
 VARIANTS = {"MmgnetSingle": 2, "SGFN": 2, "SGPN": 0, "MMteacher": 4, "MmgnetIn21k": 4,
             "SGGpoint": 0, "SGGpointBaseline": 0}
+# EdgeConv launches of one eval forward: one per DGCNN stage for the
+# SGGpoint family (eval mode, autograd off), none elsewhere; a train step
+# runs the dense stages and launches none
+VARIANT_EDGECONV = {"SGGpoint": 4, "SGGpointBaseline": 4}
 VARIANT_TRAIN_STEPS = 10
 VARIANT_CHECK_BATCHES = 1  # eval batches whose card forward is held against the CPU's
 VARIANT_PROFILED = 3       # bucket-12 eval batches and train steps under the profiler
@@ -1793,7 +1879,7 @@ def variant_run(name: str, dev) -> dict:
     t_mark = time.monotonic()
     splits = variant_splits(name)
     val, train = splits["eval"], splits["train"]
-    per_fwd = VARIANTS[name]
+    per_fwd, edge_fwd = VARIANTS[name], VARIANT_EDGECONV.get(name, 0)
     model, loss = variant_model(name, dev, SEED + 10)
     step = make_eval_step(model, device=dev)
     state = model.state_dict()
@@ -1809,9 +1895,10 @@ def variant_run(name: str, dev) -> dict:
     wall = time.monotonic() - t0
     launches = read_launches()
     nb, scenes = len(val), sum(b.num_scenes for b in val)
-    if launches != {"segment_max": per_fwd * nb, "pointnet_fused": 0, "pointnet_fused_v2": 0}:
+    if launches != {"segment_max": per_fwd * nb, "pointnet_fused": 0, "pointnet_fused_v2": 0,
+                    "edgeconv_max": edge_fwd * nb}:
         fail(f"variants, {name}: evaluation launched {launches} for {nb} batches "
-             f"(want {per_fwd * nb} segment-max, no PointNet)")
+             f"(want {per_fwd * nb} segment-max, {edge_fwd * nb} EdgeConv, no PointNet)")
     bad = [k for k, v in metrics.items() if not np.isfinite(v)]
     if bad or len(metrics) < 56:
         fail(f"variants, {name}: {len(metrics)} metrics, non-finite: {bad}")
@@ -1900,7 +1987,7 @@ def variant_run(name: str, dev) -> dict:
              f"of {sum(c['scenes'] for c in out['checks'])} scenes; fp64: none)" if knn else "")
     log(f"variants, {name}: evaluated {e['scenes']} scenes at {e['scenes_per_sec']:.1f} "
         f"scenes/s ({e['wall_ms_per_batch']:.2f} ms a batch, segment-max "
-        f"{launches['segment_max']} for {nb} batches); card forward and ranks equal the "
+        f"{launches['segment_max']} and EdgeConv {launches['edgeconv_max']} for {nb} batches); card forward and ranks equal the "
         f"CPU's on {VARIANT_CHECK_BATCHES} batch(es){flips}; trained {t['scenes_per_sec']:.1f} scenes/s "
         f"({t['step_wall_ms']:.2f} ms a step, no kernel launch); loss "
         f"{fixed_losses[0]:.4f} -> {fixed_losses[-1]:.4f} in 8 steps; fp64 step card against "
@@ -1994,7 +2081,7 @@ def variants(dev) -> dict:
     train_s = time.monotonic() - t0
     train_launches = read_launches()
     if train_launches != {"segment_max": 2 * rows * 2, "pointnet_fused": 0,
-                          "pointnet_fused_v2": 0}:
+                          "pointnet_fused_v2": 0, "edgeconv_max": 0}:
         fail(f"variants, SGFN train command: launches {train_launches}; want {4 * rows} "
              f"segment-max (2 validations of {rows} batches, 2 each)")
     reset_launches()
@@ -3493,7 +3580,6 @@ def main() -> None:
     from vlsat_tpu_torch.models import MMGNet, MMGNetConfig
     from vlsat_tpu_torch.models.mmgnet import init_parameters
     from vlsat_tpu_torch.ops.kernels import build
-    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
     from vlsat_tpu_torch.serving import BatchedServer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3513,15 +3599,16 @@ def main() -> None:
 
     # 1. build
     t0 = time.monotonic()
-    build.build(["segment_max", "pointnet"])
-    log(f"build: {time.monotonic() - t0:.1f} s for segment_max.cu and pointnet.cu (parallel nvcc)")
+    build.build(["segment_max", "pointnet", "edgeconv"])
+    log(f"build: {time.monotonic() - t0:.1f} s for segment_max.cu, pointnet.cu and edgeconv.cu "
+        "(parallel nvcc)")
     for name, (secs, out) in build.build_log.items():
         usage = [l.strip() for l in out.splitlines() if "registers" in l or "spill" in l]
         log(f"  {name}.cu built in {secs:.1f} s; ptxas: {' | '.join(usage)}")
 
     # 2-3. kernels against their twins, and times
     rng = np.random.RandomState(SEED)
-    kernels = check_segment_max(dev, rng) + check_pointnet(dev, rng)
+    kernels = check_segment_max(dev, rng) + check_pointnet(dev, rng) + check_edgeconv(dev, rng)
     mark("build_and_kernels")
 
     # 4. full-width model
@@ -3536,14 +3623,10 @@ def main() -> None:
     scenes[0] = make_scene(srng, 40)  # the largest size is always served
 
     # 5. the main path, with every launch counter at 0 just before
-    segment_max.launches = 0
-    pointnet_kernel.launches = 0
-    pointnet_kernel.launches_v2 = 0
+    reset_launches()
     t0 = time.monotonic()
     results, bench = serve(model, dev, scenes)
-    counts = {"segment_max": segment_max.launches,
-              "pointnet_fused": pointnet_kernel.launches - pointnet_kernel.launches_v2,
-              "pointnet_fused_v2": pointnet_kernel.launches_v2}
+    counts = read_launches()
     log(f"serving: {len(scenes)} scenes + load run in {time.monotonic() - t0:.1f} s; "
         f"kernel launches {counts}")
     for s, r in zip(scenes, results):
@@ -3622,6 +3705,7 @@ def main() -> None:
                "peak_memory_gib": max(m["eval"]["peak_memory_gib"],
                                       m["train"]["peak_memory_gib"]),
                "segment_max_launches": m["eval"]["launches"]["segment_max"],
+               "edgeconv_launches": m["eval"]["launches"]["edgeconv_max"],
                "knn_set_mismatches": sum(c.get("knn_set_mismatches", 0) for c in m["checks"])}
         for name, m in zoo["models"].items()}}))
     mark("variants")

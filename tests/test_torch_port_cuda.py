@@ -6,12 +6,16 @@ imports no JAX, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
 Tolerances: segment-max is bit-equal (max picks one of its inputs; NaN
-where the twin has NaN); PointNet rtol 1e-4 / atol 1e-5 (3xTF32 products on
-the tensor cores against cuBLAS fp32), its gradients equal to the twin's
-(the backward is the twin's at the same primal); the model rtol 1e-3 / atol
-1e-4 (the parity gate); a train step's loss rtol 1e-4 against the CPU and
-its gradients per leaf at the gate of tests/test_parity_torch.py:568-575
-(rtol 2e-3, atol 2e-3 * max|g|).
+where the twin has NaN); the EdgeConv kernel is bit-equal to its twin
+given the same projection (each step of the same expression rounded on its
+own), the factored DGCNN on the card within rtol 1e-4 / atol 1e-5 of the
+CPU's (cuBLAS and the CPU round the projections differently); PointNet
+rtol 1e-4 / atol 1e-5 (3xTF32 products on the tensor cores against cuBLAS
+fp32), its gradients equal to the twin's (the backward is the twin's at
+the same primal); the model rtol 1e-3 / atol 1e-4 (the parity gate); a
+train step's loss rtol 1e-4 against the CPU and its gradients per leaf at
+the gate of tests/test_parity_torch.py:568-575 (rtol 2e-3, atol 2e-3 *
+max|g|).
 """
 
 from __future__ import annotations
@@ -138,6 +142,128 @@ def test_segment_max_kernel_refuses_bad_inputs(dev):
         segment_max_cuda(data, ei.long(), em, 4)
     with pytest.raises(ValueError, match="contiguous"):
         segment_max_cuda(data.transpose(0, 1).contiguous().transpose(0, 1), ei, em, 4)
+
+
+EPS = 1e-5  # MaskedBatchNorm's
+EDGECONV_STAGES = [(3, 64), (64, 64), (64, 128), (128, 256)]  # the DGCNN's (C_in, C_out)
+
+
+def _edgeconv_inputs(b, n, c_in, c_out, dev, seed=0, p=128, k=20):
+    """A stage's projection (B, N, P, 2 C_out), kNN indices and BatchNorm
+    (mean, var, scale with every other entry negative, shift) on the card,
+    the second half of the scenes' second half of instances all-zero
+    clouds, as padding is."""
+    from vlsat_tpu_torch.ops import dgcnn
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, n, p, c_in, generator=g)
+    if c_in > 3:
+        x = torch.nn.functional.leaky_relu(x, 0.2)
+    x[b // 2:, n // 2:] = 0.0
+    weight = torch.randn(c_out, 2 * c_in, generator=g) / (2 * c_in) ** 0.5
+    gamma = torch.randn(c_out, generator=g)
+    gamma[::2] = -gamma[::2].abs()
+    stats = [torch.randn(c_out, generator=g) * 0.2, torch.rand(c_out, generator=g) + 0.5,
+             gamma, torch.randn(c_out, generator=g) * 0.1]
+    x = x.to(dev)
+    return (dgcnn.project_pairs(x, weight.to(dev)), dgcnn.knn_indices(x, k),
+            [t.to(dev) for t in stats])
+
+
+@pytest.mark.parametrize("bucket", [8, 64])
+@pytest.mark.parametrize("c_in,c_out", EDGECONV_STAGES)
+def test_edgeconv_kernel_equals_twin(dev, bucket, c_in, c_out):
+    """The served shapes (32 scenes of a bucket, 128 points, k 20): the
+    kernel's output equals the plain twin's on the card bit for bit, from
+    the same projection (both round each step of the same expression)."""
+    from vlsat_tpu_torch.ops.kernels import edgeconv as K
+
+    uw, idx, stats = _edgeconv_inputs(32, bucket, c_in, c_out, dev, seed=c_out + bucket)
+    before = K.launches
+    got = K.edgeconv_max(uw, idx, *stats, EPS)
+    assert K.launches == before + 1
+    assert got.shape == (32, bucket, 128, c_out)
+    assert torch.equal(got, K.edgeconv_max_plain(uw, idx, *stats, EPS))
+
+
+def test_edgeconv_kernel_bits_do_not_depend_on_the_batch(dev):
+    """An instance run alone (B = 1) gives the bits it gets inside a
+    padded B = 32 batch, and two calls give the same bits: the replay
+    property the serving check relies on (no atomics, a fixed order over
+    the neighbours)."""
+    from vlsat_tpu_torch.ops.kernels import edgeconv as K
+
+    uw, idx, stats = _edgeconv_inputs(32, 12, 64, 128, dev, seed=3)
+    batch = K.edgeconv_max(uw, idx, *stats, EPS)
+    assert torch.equal(batch, K.edgeconv_max(uw, idx, *stats, EPS))
+    for b, n in ((0, 0), (5, 11), (31, 2)):
+        alone = K.edgeconv_max(uw[b:b + 1, n:n + 1].contiguous(),
+                               idx[b:b + 1, n:n + 1].contiguous(), *stats, EPS)
+        assert torch.equal(alone[0, 0], batch[b, n])
+
+
+def test_edgeconv_kernel_odd_shapes_and_bad_indices(dev):
+    """P not a multiple of the 16 points a block walks at once, a channel
+    tile cut short (C = 68), k = P, an index out of range (NaN at its
+    point) and a NaN in a projection (propagates, as amax does)."""
+    from vlsat_tpu_torch.ops.kernels import edgeconv as K
+
+    uw, idx, stats = _edgeconv_inputs(3, 2, 8, 68, dev, seed=4, p=37, k=37)
+    assert torch.equal(K.edgeconv_max(uw, idx, *stats, EPS),
+                       K.edgeconv_max_plain(uw, idx, *stats, EPS))
+    uw[0, 0, 5, 2 * 7] = float("nan")  # u of channel 7, point 5 of instance (0, 0)
+    idx[1, 1, 3, 4] = 37
+    got = K.edgeconv_max(uw, idx, *stats, EPS)
+    assert got[0, 0, :, 7].isnan().all()  # every point has point 5 among its k = P
+    assert got[1, 1, 3].isnan().all() and not got[1, 1, :3].isnan().any()
+    assert not got[0, 0, :, 8:].isnan().any() and not got[2].isnan().any()
+
+
+def test_edgeconv_kernel_refuses_bad_inputs(dev):
+    from vlsat_tpu_torch.ops.kernels.edgeconv import edgeconv_max_cuda
+
+    uw, idx, stats = _edgeconv_inputs(2, 2, 3, 64, dev, p=16, k=4)
+    with pytest.raises(TypeError):
+        edgeconv_max_cuda(uw.double(), idx, *stats, EPS)
+    with pytest.raises(TypeError):
+        edgeconv_max_cuda(uw, idx.int(), *stats, EPS)
+    with pytest.raises(ValueError, match="contiguous"):
+        edgeconv_max_cuda(uw.transpose(0, 1).contiguous().transpose(0, 1), idx, *stats, EPS)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        edgeconv_max_cuda(uw[..., :-4].contiguous(), idx, *[t[:-2] for t in stats], EPS)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(1, 4096, 128, device=dev)
+        edgeconv_max_cuda(big, torch.zeros(1, 4096, 20, dtype=torch.long, device=dev),
+                          *stats, EPS)
+
+
+def test_dgcnn_on_card_launches_the_kernel_once_a_stage(dev):
+    """The DGCNN's eval forward with autograd off launches the EdgeConv
+    kernel once a stage and equals the factored forward on the CPU; with
+    autograd on, or in training, it launches none."""
+    from vlsat_tpu_torch.models.sggpoint import DGCNN
+    from vlsat_tpu_torch.ops.kernels import edgeconv as K
+
+    torch.manual_seed(5)
+    model = DGCNN(3, 64, 20).eval()
+    pts = torch.randn(4, 6, 20, 3)
+    mask = torch.ones(4, 6, dtype=torch.bool)
+    mask[2:, 3:] = False
+    pts[~mask] = 0.0
+    with torch.inference_mode():
+        want = model(pts, mask)
+    model.to(dev)
+    before = K.launches
+    with torch.inference_mode():
+        got = model(pts.to(dev), mask.to(dev))
+    assert K.launches == before + 4
+    # 20 points, k 20: every stage takes every point, so no set can differ
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    before = K.launches
+    model(pts.to(dev), mask.to(dev))
+    with torch.no_grad():
+        model.train()(pts.to(dev), mask.to(dev))
+    assert K.launches == before
 
 
 @pytest.mark.parametrize("widths", [(16, 32, 64), (64, 128, 768)])

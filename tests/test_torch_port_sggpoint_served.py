@@ -218,11 +218,18 @@ def test_dgcnn_span_and_instance_counters_under_a_profiler():
     valid = sum(len(s["gt_class"]) for s in scs)
     assert len(dg) == len(steps) == server.stats["batches"]
     assert all(s.attrs["points"] == POINTS and s.attrs["k"] == 8 for s in dg)
+    assert all(s.attrs["fused"] == 4 for s in dg)  # the served step's stages, factored
     # B * N: max_batch scenes (pad_to_max) at the batch's bucket
     assert [s.attrs["slots"] for s in dg] == [s.attrs["instance_slots"] for s in steps]
     assert all(s.attrs["instance_slots"] % 4 == 0 for s in steps)
     assert sum(s.attrs["instances"] for s in steps) == valid == server.stats["instances"]
     assert sum(s.attrs["instance_slots"] for s in steps) == server.stats["instance_slots"]
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        model.train()(_batch(scs, 12, feat_dim=64, dtype=torch.float32), istrain=True,
+                      rng=torch.Generator().manual_seed(0))
+    (train,) = [s for s in profiling.spans() if s.name == "model.dgcnn"]
+    assert train.attrs["fused"] == 0  # training runs the dense stages
     profiling.clear()
 
 

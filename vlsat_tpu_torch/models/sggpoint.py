@@ -4,19 +4,21 @@ dual-branch model (``SGGpoint``: cross-attention, CLIP-text cosine
 classifiers) and as the plain baseline (``SGGpointBaseline``).
 
 The kNN EdgeConv runs batched over padded (B, N, P, C) point sets
-(``ops.dgcnn``); GCNConv is the scatter propagation of ``ops.gcn``; the
-BatchNorms over concatenated nodes, points or edges are masked BatchNorms
-over the padded batch.  Submodules are named as the flax tree names them,
-so ``interop.from_flax`` carries the weights with its generic rules.  Torch
-needs the input width that flax infers, the point channels
-(``point_channels``); the 2D features are ``dim`` wide.  Neither
-model reaches a kernel of ``ops.kernels``: the JAX models reach no Pallas
-call.
+(``ops.dgcnn``; in eval mode with autograd off in factored form, through
+``vlsat::edgeconv_max``); GCNConv is the scatter propagation of
+``ops.gcn``; the BatchNorms over concatenated nodes, points or edges are
+masked BatchNorms over the padded batch.  Submodules are named as the
+flax tree names them, so ``interop.from_flax`` carries the weights with
+its generic rules.  Torch needs the input width that flax infers, the
+point channels (``point_channels``); the 2D features are ``dim`` wide.
+The JAX models reach no Pallas call; the port's eval forwards reach the
+EdgeConv kernel of ``ops.kernels.edgeconv`` on the card.
 
 ``SGGpoint(batch, branch_3d_only=True)`` is its serving forward, the
 paper's deployment: the 3D branch alone (the 3D outputs never read the 2D
 branch).  The backbone runs inside the span ``model.dgcnn``
-(``utils.profiling``; slots B*N, points P and k, from the shapes).
+(``utils.profiling``; slots B*N, points P and k, from the shapes, and
+``fused``, the stages run in factored form: 4 or 0).
 """
 
 from __future__ import annotations
@@ -36,9 +38,10 @@ from vlsat_tpu_torch.models.transformer import (FLAX_LN_EPS, DistanceBiasMLP,
                                                MultiHeadAttention, set_layer_norm_eps)
 from vlsat_tpu_torch.ops.attention import pairwise_distance_bias
 from vlsat_tpu_torch.ops.descriptor import edge_descriptor
-from vlsat_tpu_torch.ops.dgcnn import graph_feature
+from vlsat_tpu_torch.ops import dgcnn
 from vlsat_tpu_torch.ops.gcn import gcn_propagate
 from vlsat_tpu_torch.ops.graph import gather_edge_endpoints, scatter_edges_to_nodes
+from vlsat_tpu_torch.ops.kernels.edgeconv import edgeconv_max
 from vlsat_tpu_torch.ops.norm import safe_normalize
 from vlsat_tpu_torch.scene import SceneBatch
 from vlsat_tpu_torch.train.losses import (cosine_mimic_loss, cross_entropy,
@@ -53,7 +56,15 @@ class DGCNN(nn.Module):
     [x_j - x_i, x_i] of the k nearest points, a masked BatchNorm over the
     valid nodes' (P, k) rows, leaky ReLU 0.2, max over k), then ``conv5``
     from their concatenation to ``embeddings``: (B, N, P, C) -> (B, N, P,
-    embeddings).  ``k`` is capped at P, as the JAX models cap it."""
+    embeddings).  ``k`` is capped at P, as the JAX models cap it.
+
+    In eval mode with autograd off (``fused_stages``) each stage runs in
+    factored form: one projection of every point (``ops.dgcnn.project_pairs``)
+    and ``vlsat::edgeconv_max`` (``ops.kernels.edgeconv``: the gather,
+    BatchNorm, leaky ReLU and max over k; the CUDA kernel on the card), so
+    no (B, N, P, k, C) tensor is built.  Training needs the BatchNorm's
+    statistics over the k-wide rows and a backward, so it, and every call
+    with autograd on, runs the dense stages."""
 
     def __init__(self, in_channels: int = 3, embeddings: int = 768, k: int = 20):
         super().__init__()
@@ -65,14 +76,25 @@ class DGCNN(nn.Module):
         self.conv5_fc = nn.Linear(sum(_STAGES), embeddings, bias=False)
         self.conv5_bn = MaskedBatchNorm(embeddings)
 
+    def fused_stages(self) -> int:
+        """The stages a forward now runs in factored form: all of them in
+        eval mode with autograd off, else none."""
+        return len(_STAGES) if not self.training and not torch.is_grad_enabled() else 0
+
     def forward(self, pts, node_mask):
         k = min(self.k, pts.shape[-2])
+        fused = self.fused_stages() > 0
         x, feats = pts, []
         for i in range(1, len(_STAGES) + 1):
-            h = getattr(self, f"conv{i}_fc")(graph_feature(x, k=k))    # (B, N, P, k, C)
-            h = getattr(self, f"conv{i}_bn")(
-                h, node_mask[:, :, None, None].expand(h.shape[:-1]))
-            x = F.leaky_relu(h, 0.2).amax(dim=-2)
+            fc, bn = getattr(self, f"conv{i}_fc"), getattr(self, f"conv{i}_bn")
+            if fused:
+                idx = dgcnn.knn_indices(x, k)
+                x = edgeconv_max(dgcnn.project_pairs(x, fc.weight), idx, bn.running_mean,
+                                 bn.running_var, bn.weight, bn.bias, bn.eps)
+            else:
+                h = fc(dgcnn.graph_feature(x, k=k))                      # (B, N, P, k, C)
+                h = bn(h, node_mask[:, :, None, None].expand(h.shape[:-1]))
+                x = F.leaky_relu(h, 0.2).amax(dim=-2)
             feats.append(x)
         h = self.conv5_fc(torch.cat(feats, dim=-1))
         h = self.conv5_bn(h, node_mask[:, :, None].expand(h.shape[:-1]))
@@ -239,7 +261,8 @@ class SGGpoint(nn.Module):
             raise ValueError("branch_3d_only is an inference mode")
         pts = batch.obj_points
         with profiling.span("model.dgcnn", slots=pts.shape[0] * pts.shape[1],
-                            points=pts.shape[2], k=min(self.backbone.k, pts.shape[2])):
+                            points=pts.shape[2], k=min(self.backbone.k, pts.shape[2]),
+                            fused=self.backbone.fused_stages()):
             x = self.backbone(pts, batch.obj_mask)
         f3d = x.amax(dim=2)                                     # pool the points
         mimic_3d = f3d[..., :512]
