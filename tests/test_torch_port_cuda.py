@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain twins, on the card.
+"""The port on the card: its CUDA kernels against their plain twins, and
+every path that runs on the card (serving, evaluation, training, the data
+feed, the runner, the model zoo, artifacts, data parallelism, the offline
+path and the tools) against the CPU or against another path.
 
 These tests need an NVIDIA card with nvcc; without one they skip.  This file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -20,6 +23,7 @@ max|g|).
 
 from __future__ import annotations
 
+import contextlib
 import json
 
 import numpy as np
@@ -401,6 +405,92 @@ def test_rank_functions_on_card_equal_cpu(dev):
                        M.sorted_gt_preds_device(gt_rels))
 
 
+def test_masked_attention_on_card_matches_cpu(dev):
+    """``ops.masked_attention`` (the head-second core) at the model gate: 32
+    scenes of 5-16 nodes padded to bucket 16, the node attention's heads and
+    widths, a padding mask with one scene fully masked (zeros out), and a
+    distance-like bias applied 'add' and 'mul'."""
+    from vlsat_tpu_torch import ops
+
+    g = torch.Generator().manual_seed(13)
+    b, h, n, dk = 32, 8, 16, 64
+    q, k, v = (torch.randn(b, h, n, dk, generator=g) for _ in range(3))
+    valid = torch.arange(n)[None, :] < torch.randint(5, n + 1, (b, 1), generator=g)
+    valid[0] = False
+    mask = valid[:, None, :, None] & valid[:, None, None, :]
+    bias = torch.rand(b, h, n, n, generator=g)
+    for way in ("add", "mul"):
+        want = ops.masked_attention(q, k, v, mask=mask, bias=bias, bias_way=way)
+        got = ops.masked_attention(*(t.to(dev) for t in (q, k, v)), mask=mask.to(dev),
+                                   bias=bias.to(dev), bias_way=way).cpu()
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4, msg=way)
+        assert not got[0].any(), way
+
+
+def _triplet_vocab(batches) -> set:
+    """GT triplets of every other scene: both zero-shot and seen recall are
+    defined."""
+    vocab = set()
+    for b in batches:
+        for k in range(0, b.num_scenes, 2):
+            em = b.edge_mask[k].numpy()
+            ei, cls = b.edge_index[k].numpy()[em], b.gt_class[k].numpy()
+            for e, p in zip(*np.nonzero(b.gt_rels[k].numpy()[em] > 0)):
+                vocab.add(f"{cls[ei[e, 0]]} {cls[ei[e, 1]]} {p}")
+    return vocab
+
+
+@pytest.mark.parametrize("bucket,nodes", [(12, (5, 9, 12, 7)), (64, (40, 64, 33))])
+def test_dual_evaluate_on_card_matches_cpu(dev, bucket, nodes):
+    """The flagship's dual-branch eval step with the fused PointNet on the
+    card: 4 segment-max launches and 1 PointNet a forward, every output
+    at the model gate against the CPU's on valid rows, object and
+    predicate ranks of the card's outputs equal to the CPU's rank functions
+    on the same outputs; then ``evaluate()`` over two batches: 4 and 1
+    launches a batch, every metric finite."""
+    import torch_parallel_ranks as ranks  # tests/ is on the path: "tests" may name another package
+    from vlsat_tpu_torch.data.synthetic import make_batch
+    from vlsat_tpu_torch.eval import metrics as M
+    from vlsat_tpu_torch.eval.engine import evaluate
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    cfg = MMGNetConfig(num_obj_classes=20, num_rel_classes=7, point_feature_size=64,
+                       dim_node=64, dim_edge=64, dim_atten=32, num_heads=4, clip_feat_dim=64,
+                       fused_pointnet=True)
+    model = build_mmgnet(cfg, device=dev, seed=6)
+    batches = [make_batch(seed=s, node_counts=nodes, bucket=bucket, num_points=32, feat_dim=64,
+                          num_obj_classes=20, num_rel_classes=7) for s in (6, 7)]
+    state = model.state_dict()
+    step = make_eval_step(model, device=dev)
+    before = (segment_max.launches, pointnet_kernel.launches)
+    card = step(state, batches[0])
+    assert (segment_max.launches - before[0], pointnet_kernel.launches - before[1]) == (4, 1)
+    want = make_eval_step(model, device="cpu")({k: v.cpu() for k, v in state.items()},
+                                               batches[0])
+    b = batches[0]
+    masks = {"obj": b.obj_mask, "rel": b.edge_mask}
+    for key in ("obj_logits_3d", "obj_logits_2d", "rel_cls_3d", "rel_cls_2d"):
+        m = masks[key.split("_")[0]]
+        torch.testing.assert_close(card[key].cpu()[m], want[key][m], rtol=1e-3, atol=1e-4,
+                                   msg=key)
+    gt = b.gt_class.to(dev)
+    for tag in ("3d", "2d"):
+        ol, rc = card[f"obj_logits_{tag}"], card[f"rel_cls_{tag}"]
+        assert torch.equal(M.object_ranks(ol, gt).cpu(), M.object_ranks(ol.cpu(), b.gt_class))
+        for g, w in zip(M.predicate_rank_parts(rc), M.predicate_rank_parts(rc.cpu())):
+            assert torch.equal(g.cpu(), w), tag
+    counted = ranks.counted(step)
+    before = (segment_max.launches, pointnet_kernel.launches)
+    metrics = evaluate(counted, state, batches, num_rel_classes=7, verbose=False,
+                       scene_recall=True, train_triplet_vocab=_triplet_vocab(batches))
+    assert counted.calls == len(batches)
+    assert (segment_max.launches - before[0], pointnet_kernel.launches - before[1]) == \
+        (4 * counted.calls, counted.calls)
+    assert metrics and all(np.isfinite(v) for v in metrics.values()), metrics
+
+
 def test_evaluate_on_card_equals_cpu(dev):
     """evaluate() of the same model outputs on the card (pinned buffers,
     one copy per batch, event fence) and on the CPU: the same metrics."""
@@ -524,15 +614,25 @@ def test_eval_mode_gradients_through_fused_encoder(dev):
         assert torch.isclose(grads[True][n], w, rtol=2e-3, atol=2e-3 * scale).all(), n
 
 
-def test_train_step_on_card_matches_cpu(dev):
-    """One train step from identical weights, every dropout off: loss and
-    every gradient leaf against the CPU; no kernel launches in training."""
+def _as_dtype(batch, dtype):
+    return batch.replace(**{f: getattr(batch, f).to(dtype) for f in
+                            ("obj_points", "descriptor", "obj_2d_feats", "gt_rels",
+                             "rel_text_feat", "rel_points") if getattr(batch, f) is not None})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["fp32", "fp64"])
+def test_train_step_on_card_matches_cpu(dev, dtype):
+    """One train step from identical weights, every dropout off, in fp32
+    (the path's precision) and fp64: loss and every gradient leaf against
+    the CPU; no kernel launches in training."""
     from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
     from vlsat_tpu_torch.train.optim import make_optimizer
     from vlsat_tpu_torch.train.state import create_train_state
     from vlsat_tpu_torch.train.step import make_train_step
 
     models, batch = _narrow_train_setup(dev)
+    models = [m.to(dtype) for m in models]
+    batch = _as_dtype(batch, dtype)
     spec = make_optimizer(lr=1e-4, max_iteration=100)
     losses = []
     counts = (segment_max.launches, pointnet_kernel.launches)
@@ -585,12 +685,15 @@ def test_resident_gather_on_card_equals_host_rows(dev, tmp_path):
 def test_grouped_evaluate_on_card_equals_per_batch(dev, tmp_path, monkeypatch):
     """On the card, the grouped resident path (K batches, one copy per
     group, a partial tail group) and the per-batch resident and streaming
-    paths give the same metrics; batches of equal shapes (6 scenes, B=3)."""
+    paths give the same metrics, with 4 segment-max launches and 1 PointNet
+    a batch or grouped row; batches of equal shapes (6 scenes, B=3)."""
+    import torch_parallel_ranks as ranks
     from vlsat_tpu_torch.data.packed import PackedLoader
     from vlsat_tpu_torch.data.resident import (ResidentEvalLoader, ResidentGroupedEval,
                                                ResidentScenes)
     from vlsat_tpu_torch.eval.engine import evaluate
     from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
     from vlsat_tpu_torch.train.step import make_eval_step
 
     monkeypatch.setenv("VLSAT_WIRE_DTYPE", "float32")
@@ -605,10 +708,85 @@ def test_grouped_evaluate_on_card_equals_per_batch(dev, tmp_path, monkeypatch):
     for loader in (ResidentGroupedEval(resident, 3, group=2),
                    ResidentGroupedEval(resident, 3, group=3),
                    PackedLoader(packed, batch_size=3)):
-        got = evaluate(step, model.state_dict(), loader, **kw)
+        counted = ranks.counted(step)
+        before = (segment_max.launches, pointnet_kernel.launches)
+        got = evaluate(counted, model.state_dict(), loader, **kw)
+        # 4 segment-max and 1 PointNet a batch or grouped row
+        assert (segment_max.launches - before[0], pointnet_kernel.launches - before[1]) == \
+            (4 * counted.calls, counted.calls) and counted.calls >= 2, type(loader)
         assert sorted(got) == sorted(want)
         for k, w in want.items():
             assert (np.isnan(w) and np.isnan(got[k])) or got[k] == w, (type(loader), k)
+
+
+def test_grouped_tail_batch_on_card_equals_unpadded(dev, tmp_path):
+    """A bucket's partial last batch evaluated alone and padded to the
+    batch size the way the grouped loader pads it (the last scene
+    repeated): every output within 1e-5 relative on the live rows."""
+    from vlsat_tpu_torch.data.resident import ResidentScenes, gather_rows
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    packed = _small_pack(tmp_path, num_scans=7)
+    cfg = MMGNetConfig(point_feature_size=64, dim_node=64, dim_edge=64, dim_atten=32,
+                       num_heads=4, clip_feat_dim=64, fused_pointnet=True)
+    model = build_mmgnet(cfg, device=dev, seed=3)
+    step, state, batch = make_eval_step(model, device=dev), model.state_dict(), 4
+    resident = ResidentScenes(packed, device=dev)
+    for b in resident.buckets:
+        c = resident.count(b)
+        start = (c - 1) // batch * batch
+        assert c - start < batch  # a partial tail
+        full = resident.full_batch(b)
+        alone = step(state, gather_rows(full, torch.arange(start, c, device=dev)))
+        rows = torch.clamp(torch.arange(start, start + batch, device=dev), max=c - 1)
+        padded = step(state, gather_rows(full, rows))
+        for k, v in alone.items():
+            rel = (padded[k][:c - start] - v).abs().max() / v.abs().max().clamp_min(1e-30)
+            assert rel.item() <= 1e-5, (b, k, rel.item())
+
+
+def test_resident_multi_train_step_on_card_equals_streaming(dev, tmp_path):
+    """``make_resident_multi_train_step`` (rows gathered on the card) and
+    ``make_multi_train_step`` (the same rows stacked on the host) from one
+    set of weights, dropout off, K=2 steps of B=2: losses within 1e-6
+    relative, all finite, no kernel launch."""
+    from vlsat_tpu_torch.data.resident import ResidentScenes
+    from vlsat_tpu_torch.models.layers import Dropout
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+    from vlsat_tpu_torch.train.optim import make_optimizer
+    from vlsat_tpu_torch.train.state import create_train_state
+    from vlsat_tpu_torch.train.step import (make_multi_train_step,
+                                            make_resident_multi_train_step, stack_batches)
+
+    packed = _small_pack(tmp_path)
+    b = packed.buckets[0]
+    perm = np.asarray([2, 0, 3, 1], np.int32)
+    cfg = MMGNetConfig(point_feature_size=64, dim_node=64, dim_edge=64, dim_atten=32,
+                       num_heads=4, clip_feat_dim=64, fused_pointnet=True)
+    spec = make_optimizer(lr=1e-4, max_iteration=100)
+    counts = (segment_max.launches, pointnet_kernel.launches)
+    losses = []
+    for resident in (True, False):
+        model = build_mmgnet(cfg, device=dev, seed=7)
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+        state = create_train_state(model, spec)
+        kw = dict(text_table=packed.text_table, device=dev)
+        if resident:
+            split = ResidentScenes(packed, device=dev).full_batch(b)
+            step = make_resident_multi_train_step(model, spec, split, batch_size=2, **kw)
+            _, aux = step(state, perm, 0)
+        else:
+            group = stack_batches([packed.batch(b, perm[:2]), packed.batch(b, perm[2:])])
+            _, aux = make_multi_train_step(model, spec, **kw)(state, group, 0)
+        losses.append(aux["losses"].cpu().double())
+    assert (segment_max.launches, pointnet_kernel.launches) == counts
+    assert torch.isfinite(losses[0]).all() and losses[0].numel() == 2
+    rel = ((losses[0] - losses[1]).abs() / losses[1].abs()).max().item()
+    assert rel <= 1e-6, (losses, rel)
 
 
 def test_server_pinned_path_equals_pageable_path(dev):
@@ -715,42 +893,131 @@ def test_runner_epoch_and_validation_on_card(dev, tmp_path):
     assert row["hbm_peak_mb"] > 0 and np.isfinite(row["mean_recall_50"])
 
 
-@pytest.mark.parametrize("name,per_forward", [("MmgnetSingle", 2), ("SGFN", 2), ("SGPN", 0),
-                                               ("MMteacher", 4), ("MmgnetIn21k", 4),
-                                               ("SGGpoint", 0), ("SGGpointBaseline", 0)])
-def test_variant_eval_forward_on_card_matches_cpu(dev, name, per_forward):
-    """A registry variant's eval forward on the card launches segment-max
-    once per graph layer and branch (none for SGPN and the SGGpoint family)
-    and equals the CPU's forward of the same weights at the model gate (16
-    points an instance: the SGGpoint kNN takes every point, so no
-    neighbour set can differ)."""
+# segment-max launches of one eval forward: one per GraphEdgeAttenNetwork
+# layer (depth 2), both towers of the teacher/student and both branches of
+# in21k; SGPN has no graph network, and the SGGpoint family aggregates by
+# mean and add (EdgeGCN), never by max
+VARIANTS = [("MmgnetSingle", 2), ("SGFN", 2), ("SGPN", 0), ("MMteacher", 4), ("MmgnetIn21k", 4),
+            ("SGGpoint", 0), ("SGGpointBaseline", 0)]
+
+
+def _variant(name, seed, num_points=16, with_text=False):
+    """A registry model at the default MODEL widths (2 layers, attention 32
+    wide, 4 heads), seeded, on the CPU, its loss, and a 3-scene batch of
+    its inputs (768-d 2D features for in21k, 32-point union clouds for
+    SGPN, 512-d text targets with ``with_text``)."""
     from vlsat_tpu_torch.config import load_config
     from vlsat_tpu_torch.data.synthetic import make_batch
     from vlsat_tpu_torch.models.mmgnet import init_parameters
     from vlsat_tpu_torch.models.registry import build_model
-    from vlsat_tpu_torch.ops.kernels import segment_max
-    from vlsat_tpu_torch.train.step import make_eval_step
 
     mcfg = load_config(overrides={"MODEL": {"N_LAYERS": 2, "DIM_ATTEN": 32,
                                             "NUM_HEADS": 4}}).MODEL
-    model, _ = build_model(name, 20, 7, mcfg)
-    init_parameters(model, torch.Generator().manual_seed(4))
-    batch = make_batch(seed=1, node_counts=(4, 6, 9), num_points=16,
+    model, loss = build_model(name, 20, 7, mcfg)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    batch = make_batch(seed=1, node_counts=(4, 6, 9), num_points=num_points,
                        feat_dim=768 if name == "MmgnetIn21k" else 512,
                        num_obj_classes=20, num_rel_classes=7)
+    rng = np.random.RandomState(2)
     if name == "SGPN":
-        rng = np.random.RandomState(2)
         pts = rng.randn(*batch.edge_mask.shape, 32, 4).astype(np.float32)
         batch = batch.replace(rel_points=torch.from_numpy(pts) * batch.edge_mask[..., None, None])
+    if with_text:
+        text = rng.randn(*batch.edge_mask.shape, 512).astype(np.float32)
+        text /= np.linalg.norm(text, axis=-1, keepdims=True)
+        batch = batch.replace(rel_text_feat=torch.from_numpy(text) * batch.edge_mask[..., None])
+    return model, loss, batch
+
+
+@pytest.mark.parametrize("name,per_forward", VARIANTS)
+def test_variant_eval_forward_on_card_matches_cpu(dev, name, per_forward):
+    """A registry variant's eval forward on the card launches segment-max
+    once per graph layer and branch (none for SGPN and the SGGpoint family),
+    the EdgeConv kernel once a DGCNN stage (the SGGpoint family) and no
+    PointNet, and equals the CPU's forward of the same weights at the model
+    gate (16 points an instance: the SGGpoint kNN takes every point, so no
+    neighbour set can differ)."""
+    from vlsat_tpu_torch.ops.kernels import edgeconv, pointnet_kernel, segment_max
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    model, _, batch = _variant(name, 4)
     want = make_eval_step(model, device="cpu")(model.state_dict(), batch)
     model.to(dev)
-    before = segment_max.launches
+    before = (segment_max.launches, edgeconv.launches, pointnet_kernel.launches)
     got = make_eval_step(model, device=dev)(model.state_dict(), batch)
-    assert segment_max.launches - before == per_forward
+    after = (segment_max.launches, edgeconv.launches, pointnet_kernel.launches)
+    assert [a - b for a, b in zip(after, before)] == \
+        [per_forward, 4 if name.startswith("SGGpoint") else 0, 0]
     masks = {"obj": batch.obj_mask, "rel": batch.edge_mask}
     for key, w in want.items():
         m = masks[key.split("_")[0]]
         torch.testing.assert_close(got[key].cpu()[m], w[m], rtol=1e-3, atol=1e-4, msg=key)
+
+
+@contextlib.contextmanager
+def _knn_sets():
+    """Records the neighbour indices of every kNN that ``ops.dgcnn``
+    computes in the block, each (B, N, P, k) sorted along k, on the CPU."""
+    from vlsat_tpu_torch.ops import dgcnn
+
+    real, calls = dgcnn.knn_indices, []
+
+    def record(x, k):
+        idx = real(x, k)
+        calls.append(idx.sort(dim=-1).values.cpu())
+        return idx
+
+    dgcnn.knn_indices = record
+    try:
+        yield calls
+    finally:
+        dgcnn.knn_indices = real
+
+
+@pytest.mark.parametrize("name", ["Mmgnet"] + [n for n, _ in VARIANTS])
+def test_variant_train_step_on_card_matches_cpu(dev, name):
+    """A registry model's train step with its own loss and text targets:
+    one fp64 step on the card and on the CPU from identical weights, every
+    dropout off (loss rtol 1e-4, every gradient leaf at the gate, every kNN
+    neighbour set of a valid instance equal, 32 points an instance); no
+    kernel launch in training (the DGCNN trains its dense stages); and on
+    the card, 8 fp32 steps on one repeated batch lower the loss."""
+    from vlsat_tpu_torch.models.layers import Dropout
+    from vlsat_tpu_torch.ops.kernels import edgeconv, pointnet_kernel, segment_max
+    from vlsat_tpu_torch.train.optim import make_optimizer
+    from vlsat_tpu_torch.train.state import create_train_state
+    from vlsat_tpu_torch.train.step import make_train_step
+
+    spec = make_optimizer(lr=1e-4, max_iteration=1000)
+    counts = lambda: (segment_max.launches, edgeconv.launches, pointnet_kernel.launches)
+    before = counts()
+    pair, losses, sets = [], [], []
+    for d in (dev, "cpu"):
+        model, loss, batch = _variant(name, 12, num_points=32, with_text=True)
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+        model = model.to(d).double()
+        with _knn_sets() as calls:
+            _, aux = make_train_step(model, spec, objective=loss, device=d)(
+                create_train_state(model, spec), _as_dtype(batch, torch.float64), 0)
+        pair.append(model)
+        losses.append(aux["loss"].item())
+        sets.append(calls)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+    _assert_grads_at_gate(*pair)
+    assert len(sets[0]) == len(sets[1]) == (4 if name.startswith("SGGpoint") else 0)
+    valid = batch.obj_mask  # a padded instance's all-zero cloud ties every distance
+    for g, w in zip(*sets):
+        assert torch.equal(g[valid], w[valid])
+
+    model, loss, batch = _variant(name, 11, num_points=32, with_text=True)
+    model.to(dev)
+    state, step = create_train_state(model, spec), make_train_step(model, spec, objective=loss,
+                                                                   device=dev)
+    fixed = torch.stack([step(state, batch, 0)[1]["loss"] for _ in range(8)]).cpu()
+    assert torch.isfinite(fixed).all() and fixed[-1] < fixed[0], fixed.tolist()
+    assert counts() == before
 
 
 def _flagship_artifact(tmp_path, dev):
@@ -766,26 +1033,30 @@ def _flagship_artifact(tmp_path, dev):
 
 def test_serving_artifact_on_card_equals_live_step(dev, tmp_path):
     """The flagship (fused PointNet) exported on the card: the artifact's
-    outputs equal the live 3D-only step's at 1e-6, with the same kernel
-    launches (one PointNet and two segment-max a forward), and exporting
-    launches nothing."""
+    outputs equal the live 3D-only step's at 1e-6 on a batch already on
+    the card, which the live step runs dense as the artifact does (a host
+    batch it packs into edge rows: test_packed_eval_step_on_card_equals_dense
+    holds that against dense), with the same kernel launches (one PointNet
+    and two segment-max a forward), and exporting launches nothing."""
     from vlsat_tpu_torch.data.synthetic import make_batch
     from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
     from vlsat_tpu_torch.serving_export import load_serving_artifact
-    from vlsat_tpu_torch.train.step import make_eval_step
+    from vlsat_tpu_torch.train.step import make_eval_step, take_edge_rows
 
     before = (segment_max.launches, pointnet_kernel.launches)
     model = _flagship_artifact(tmp_path, dev)
     assert (segment_max.launches, pointnet_kernel.launches) == before
     batch = make_batch(seed=2, node_counts=(3, 8, 5, 2), bucket=8, num_points=32,
-                       num_obj_classes=20, num_rel_classes=7)
+                       num_obj_classes=20, num_rel_classes=7).to(dev)
+    live = make_eval_step(model, branch_3d_only=True, device=dev)
     counts = []
     outs = []
-    for step in (make_eval_step(model, branch_3d_only=True, device=dev),
-                 load_serving_artifact(str(tmp_path), device=dev)):
+    for step in (live, load_serving_artifact(str(tmp_path), device=dev)):
         before = (segment_max.launches, pointnet_kernel.launches)
         outs.append(step(model.state_dict(), batch))
         counts.append((segment_max.launches - before[0], pointnet_kernel.launches - before[1]))
+        if step is live:  # dense: every edge slot computed
+            assert take_edge_rows() == (batch.edge_mask.numel(),) * 2
     assert counts[0] == counts[1] == (2, 1)
     for key in ("obj_logits_3d", "rel_cls_3d"):
         torch.testing.assert_close(outs[1][key], outs[0][key], rtol=1e-6, atol=1e-6)
@@ -858,15 +1129,11 @@ def test_operators_on_card_keep_their_gradients(dev):
     assert torch.equal(grads[0], grads[1])
 
 
-def test_data_parallel_two_ranks_on_one_card_equal_one_process(dev, tmp_path):
-    """Two gloo ranks sharing the card (``parallel.spawn_ranks``), dropout
-    on: the global batch's losses over 2 SGD steps equal one process's at
-    rtol 1e-5, and every weight is within max(5e-5, 1e-2 x its update)
-    (tests/test_production_shape_sharding.py:76-77); both ranks agree."""
+def _dp_train_specs():
+    """The flagship at narrow widths with dropout on: two SGD steps and
+    three AdamW steps on 8-scene batches."""
     import functools
 
-    import torch_parallel_ranks as ranks  # tests/ is on the path: "tests" may name another package
-    from vlsat_tpu_torch import parallel
     from vlsat_tpu_torch.data.synthetic import make_batch
     from vlsat_tpu_torch.models.mmgnet import MMGNet, MMGNetConfig, build_mmgnet
     from vlsat_tpu_torch.train.losses import vlsat_total_loss
@@ -875,23 +1142,106 @@ def test_data_parallel_two_ranks_on_one_card_equal_one_process(dev, tmp_path):
                        dim_node=64, dim_edge=64, dim_atten=32, num_heads=4, clip_feat_dim=64)
     batches = [make_batch(seed=s, node_counts=(5, 8, 3, 6, 4, 7, 2, 8), num_points=16,
                           bucket=8, feat_dim=64, num_obj_classes=20, num_rel_classes=7)
-               for s in (1, 2)]
+               for s in (1, 2, 3)]
     initial = build_mmgnet(cfg, device="cpu", seed=3).state_dict()
-    spec = dict(model_cls=MMGNet, cfg=cfg, state=initial, dropout=True, opt="sgd", lr=1e-2,
-                loss=functools.partial(vlsat_total_loss), batches=batches)
+    spec = dict(model_cls=MMGNet, cfg=cfg, state=initial, dropout=True,
+                loss=functools.partial(vlsat_total_loss))
+    return {"case": dict(spec, opt="sgd", lr=1e-2, batches=batches[:2]),
+            "adamw": dict(spec, opt="adamw", lr=1e-4, batches=batches)}
+
+
+def _assert_dp_train_equals_one_process(got: dict, specs: dict, dev):
+    """Losses rtol 1e-5 against the same steps without a group; after SGD
+    every weight within max(5e-5, 1e-2 x its update)
+    (tests/test_production_shape_sharding.py:76-77); the ranks agree."""
+    import torch_parallel_ranks as ranks  # tests/ is on the path: "tests" may name another package
+
+    for name, spec in specs.items():
+        res = got[f"train/{name}"]
+        assert res["agree"], name
+        want = ranks.train(spec, device=dev)
+        np.testing.assert_allclose(res["losses"], want["losses"], rtol=1e-5, err_msg=name)
+        if spec["opt"] != "sgd":
+            continue
+        for k, w in want["state"].items():
+            diff = float(np.abs(res["state"][k] - w).max()) if w.size else 0.0
+            upd = float(np.abs(w - spec["state"][k].numpy()).max()) if w.size else 0.0
+            assert diff <= max(5e-5, 1e-2 * upd), (k, diff, upd)
+
+
+def _rank_lists(save_dir) -> dict:
+    return {n: np.load(save_dir / f"{n}.npy")
+            for n in ("topk_pred_list", "topk_triplet_list", "cls_matrix_list")}
+
+
+def test_data_parallel_two_ranks_on_one_card_equal_one_process(dev, tmp_path, monkeypatch):
+    """Two gloo ranks sharing the card (``parallel.spawn_ranks``), dropout
+    on: the global batch's losses over 2 SGD and 3 AdamW steps equal one
+    process's; then evaluation (fused PointNet) streamed through
+    ``shard_eval_batches`` and resident through ``ResidentShardedEval``
+    (groups 1 and 2): rank 0's rank lists against the same evaluation with
+    no group, at most 0.1 % of them differing, and in every rank 4
+    segment-max launches and 1 PointNet a batch."""
+    import torch_parallel_ranks as ranks
+    from vlsat_tpu_torch import parallel
+    from vlsat_tpu_torch.data.packed import PackedLoader
+    from vlsat_tpu_torch.data.resident import ResidentGroupedEval, ResidentScenes
+    from vlsat_tpu_torch.data.synthetic import make_batch
+    from vlsat_tpu_torch.eval.engine import evaluate
+    from vlsat_tpu_torch.models.mmgnet import MMGNet, MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    monkeypatch.setenv("VLSAT_WIRE_DTYPE", "float32")  # the ranks inherit it
+    packed = _small_pack(tmp_path, num_scans=12, insts=(4, 12))
+    cfg = MMGNetConfig(point_feature_size=64, dim_node=64, dim_edge=64, dim_atten=32,
+                       num_heads=4, clip_feat_dim=64, fused_pointnet=True)
+    batches = [make_batch(seed=s, node_counts=(5, 8, 3, 6, 4, 7, 2, 8), num_points=32,
+                          bucket=8, feat_dim=64) for s in (4, 5)]
+    ev = {"kw": dict(scene_recall=True, train_triplet_vocab=_triplet_vocab(batches)),
+          "batches": batches, "pack": packed.root, "bs": 4, "work": str(tmp_path / "ranks"),
+          "save_ranks": True,
+          "model": dict(model_cls=MMGNet, cfg=cfg,
+                        state=build_mmgnet(cfg, device="cpu", seed=8).state_dict())}
+    specs = _dp_train_specs()
     path = str(tmp_path / "inputs.pt")
-    torch.save({"train": {"case": spec}}, path)
+    torch.save({"train": specs, "eval": ev}, path)
     got = parallel.spawn_ranks(ranks.run, 2, path, device="cuda", store_dir=str(tmp_path),
                                timeout_s=300)
     assert got["world"] == (2, "gloo", "cuda:0")
-    res = got["train/case"]
-    assert res["agree"]
-    want = ranks.train(spec, device=dev)
-    np.testing.assert_allclose(res["losses"], want["losses"], rtol=1e-5)
-    for k, w in want["state"].items():
-        diff = float(np.abs(res["state"][k] - w).max()) if w.size else 0.0
-        upd = float(np.abs(w - initial[k].numpy()).max()) if w.size else 0.0
-        assert diff <= max(5e-5, 1e-2 * upd), (k, diff, upd)
+    _assert_dp_train_equals_one_process(got, specs, dev)
+    assert got["eval/agree"]
+
+    model = ranks.build(ev["model"], dev)
+    step, sd = make_eval_step(model, device=dev), model.state_dict()
+    resident = ResidentScenes(packed, device=dev)
+    loaders = {"model": batches, "streamed_pack": PackedLoader(packed, 4),
+               **{f"resident_group{g}": ResidentGroupedEval(resident, 4, group=g)
+                  for g in (1, 2)}}
+    for name, loader in loaders.items():
+        evaluate(step, sd, loader, save_dir=str(tmp_path / "one" / name), verbose=False,
+                 **ev["kw"])
+        want = _rank_lists(tmp_path / "one" / name)
+        lists = _rank_lists(tmp_path / "ranks" / name)
+        assert all(lists[k].shape == w.shape for k, w in want.items()), name
+        differ = sum(int((lists[k] != w).sum()) for k, w in want.items())
+        assert differ <= 1e-3 * sum(w.size for w in want.values()), (name, differ)
+        for calls, seg, pn in (r[name] for r in got["launches"]):
+            assert calls > 0 and (seg, pn) == (4 * calls, calls), (name, calls, seg, pn)
+
+
+def test_data_parallel_one_nccl_rank_on_card_equals_one_process(dev, tmp_path):
+    """One rank on the card forms an NCCL group: its SGD and AdamW steps
+    equal the same steps without a group."""
+    import torch_parallel_ranks as ranks
+    from vlsat_tpu_torch import parallel
+
+    specs = _dp_train_specs()
+    path = str(tmp_path / "inputs.pt")
+    torch.save({"train": specs}, path)
+    got = parallel.spawn_ranks(ranks.run, 1, path, device="cuda", store_dir=str(tmp_path),
+                               timeout_s=300)
+    assert got["world"] == (1, "nccl", "cuda:0")
+    _assert_dp_train_equals_one_process(got, specs, dev)
 
 
 def test_offline_projection_and_depth_on_card_equal_cpu(dev):
@@ -934,7 +1284,7 @@ def test_offline_projection_and_depth_on_card_equal_cpu(dev):
 def test_adapter_steps_on_card_equal_cpu(dev):
     """Ten ``train_adapter`` steps (512-d, 160 classes, B=32) on the card
     against the CPU from the same initial weights: losses rtol 1e-4, the
-    weights within 1e-5."""
+    weights within 1e-5, the best top-1 within 0.5 points."""
     from vlsat_tpu_torch.clipsem.adapter_train import train_adapter
 
     rng = np.random.RandomState(1)
@@ -954,6 +1304,7 @@ def test_adapter_steps_on_card_equal_cpu(dev):
     (p_card, t_card, l_card), (p_cpu, t_cpu, l_cpu) = runs
     assert len(l_card) == 10
     np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
+    assert abs(t_card - t_cpu) <= 0.5, (t_card, t_cpu)
     for layer in ("fc1", "fc2"):
         np.testing.assert_allclose(p_card[layer]["kernel"], p_cpu[layer]["kernel"], atol=1e-5)
 
@@ -973,17 +1324,96 @@ def test_serve_tool_on_card(dev, tmp_path):
     assert np.isfinite(res["batched"]["p99_latency_ms"])
 
 
+def _reference_module_files(directory, seed: int) -> None:
+    """Per-module ``.pth`` files of a reference ``Mmgnet`` checkpoint
+    (BaseModel.save naming and Sequential indices, as
+    tests/test_torch_import.py fabricates them) at full width, with seeded
+    weights scaled by 1/sqrt(fan-in) and positive BatchNorm variances."""
+    g = torch.Generator().manual_seed(seed)
+    d, h, da = 512, 8, 256
+    dn, do = d // h, da // h
+
+    def lin(prefix, din, dout):
+        p = f"{prefix}." if prefix else ""
+        return {f"{p}weight": torch.randn(dout, din, generator=g) / din ** 0.5,
+                f"{p}bias": 0.1 * torch.randn(dout, generator=g)}
+
+    def norm(prefix, n, stats=False):
+        out = {f"{prefix}.weight": 1 + 0.1 * torch.randn(n, generator=g),
+               f"{prefix}.bias": 0.1 * torch.randn(n, generator=g)}
+        if stats:
+            out[f"{prefix}.running_mean"] = 0.5 * torch.randn(n, generator=g)
+            out[f"{prefix}.running_var"] = 0.5 + torch.rand(n, generator=g)
+        return out
+
+    def many(*parts):
+        return {k: v for part in parts for k, v in part.items()}
+
+    pointnet = lambda cin, cout: many(lin("conv1", cin, 64), lin("conv2", 64, 128),
+                                      lin("conv3", 128, cout))
+    mha = lambda p: many(*(lin(f"{p}.attention.fc_{x}", d, d) for x in "qkvo"),
+                         norm(f"{p}.layer_norm", d))
+    gean = lambda p: many(
+        lin(f"{p}.edgeatten.nn_edge.0", 3 * d, 2 * d), lin(f"{p}.edgeatten.nn_edge.2", 2 * d, d),
+        lin(f"{p}.edgeatten.proj_query.0", d, d), lin(f"{p}.edgeatten.proj_edge.0", d, d),
+        lin(f"{p}.edgeatten.proj_value.0", d, da), lin(f"{p}.edgeatten.nn.0", 2 * dn, 2 * dn),
+        lin(f"{p}.edgeatten.nn.3", 2 * dn, do), lin(f"{p}.prop.0", d + da, d + da),
+        lin(f"{p}.prop.2", d + da, d))
+    mmg = many(lin("self_attn_fc.0", 4, 32), norm("self_attn_fc.2", 32),
+               lin("self_attn_fc.3", 32, 32), norm("self_attn_fc.5", 32),
+               lin("self_attn_fc.6", 32, h),
+               *(mha(f"{m}.{i}") for i in range(2)
+                 for m in ("self_attn", "cross_attn", "cross_attn_rel")),
+               *(gean(f"{m}.{i}") for i in range(2) for m in ("gcn_3ds", "gcn_2ds")))
+    rel = lambda: many(lin("fc1", d, 512), lin("fc2", 512, 256), lin("fc3", 256, 26))
+    modules = {
+        "obj_encoder": pointnet(3, 768), "rel_encoder_2d": pointnet(11, d),
+        "rel_encoder_3d": pointnet(11, d), "mmg": mmg,
+        "clip_adapter": many(lin("fc1", d, 256), lin("fc2", 256, d)),
+        "rel_predictor_2d": rel(), "rel_predictor_3d": rel(),
+        "obj_predictor_2d": lin("", d, 160), "obj_predictor_3d": lin("", d, 160),
+        "mlp_3d": many(lin("0", 768, 504), norm("1", 504, stats=True)),
+        "triplet_projector_2d": many(lin("0", 3 * d, 1024), lin("3", 1024, d)),
+        "obj_logit_scale": {"obj_logit_scale": torch.tensor(float(np.log(1 / 0.07)))},
+    }
+    directory.mkdir(parents=True, exist_ok=True)
+    for name, sd in modules.items():
+        torch.save(sd, directory / f"{name}.pth")
+
+
+def test_imported_reference_on_card_matches_cpu(dev, tmp_path):
+    """A reference checkpoint directory of per-module ``.pth`` files at full
+    width, imported by ``interop.torch_import``: the dual forward on the
+    card equals the CPU's at the model gate on valid rows."""
+    from vlsat_tpu_torch.data.synthetic import make_batch
+    from vlsat_tpu_torch.interop.torch_import import import_from_directory, to_state_dict
+    from vlsat_tpu_torch.models.mmgnet import MMGNet, MMGNetConfig
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    _reference_module_files(tmp_path / "ckpt", seed=13)
+    variables = import_from_directory(str(tmp_path / "ckpt"))
+    batch = make_batch(seed=14, node_counts=(5, 9, 7, 6), num_points=64)
+    outs = []
+    for d in (dev, "cpu"):
+        model = MMGNet(MMGNetConfig()).to(d)
+        model.load_state_dict(to_state_dict(variables, model))
+        outs.append(make_eval_step(model.eval(), device=d)(model.state_dict(), batch))
+    masks = {"obj": batch.obj_mask, "rel": batch.edge_mask}
+    for key, w in outs[1].items():
+        m = masks[key.split("_")[0]]
+        torch.testing.assert_close(outs[0][key].cpu()[m], w[m], rtol=1e-3, atol=1e-4, msg=key)
+
+
 def test_parity_eval_on_card_within_tolerance_of_cpu(dev, tmp_path):
     """``tools.parity_eval`` on a seeded full-width reference ``.pth``
     directory and a 6-scan PLY split: the card run against the CPU run's
     metrics as the reference is within the 0.5-point tolerance, with 4
     segment-max launches a batch."""
-    import chip_smoke
     from vlsat_tpu_torch.data.synthetic import make_synthetic_split
     from vlsat_tpu_torch.ops.kernels import segment_max
     from vlsat_tpu_torch.tools import parity_eval
 
-    chip_smoke.reference_module_files(tmp_path / "ckpt", seed=4)
+    _reference_module_files(tmp_path / "ckpt", seed=4)
     root, scans, _ = make_synthetic_split(str(tmp_path / "split"), num_scans=6,
                                           insts_per_scan=(4, 9), vertices_per_inst=300,
                                           rels_per_scan=(2, 8), seed=4, write_ply=True)

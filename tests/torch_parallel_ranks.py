@@ -97,9 +97,33 @@ def _same(a, b) -> bool:
 
 def _agree(world, value) -> bool:
     """Whether every rank holds the same ``value``."""
+    got = _gather(world, value)
+    return all(_same(g, got[0]) for g in got)
+
+
+def _gather(world, value) -> list:
+    """Every rank's ``value``, in rank order."""
     got = [None] * world.size
     dist.all_gather_object(got, value, group=world.host_group)
-    return all(_same(g, got[0]) for g in got)
+    return got
+
+
+def _launches() -> tuple:
+    """The process's kernel launches so far: (segment-max, PointNet); both
+    count card launches only."""
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel, segment_max
+
+    return segment_max.launches, pointnet_kernel.launches
+
+
+def counted(step):
+    """``step`` counting its calls (one a batch, or a grouped loader's row)."""
+    def run(state, batch):
+        run.calls += 1
+        return step(state, batch)
+
+    run.calls, run.device = 0, step.device
+    return run
 
 
 def run(inputs_path: str) -> dict:
@@ -116,24 +140,31 @@ def run(inputs_path: str) -> dict:
         from vlsat_tpu_torch.data.resident import ResidentShardedEval
 
         kw = dict(ev["kw"], verbose=False)
-        save = os.path.join(ev["work"], f"replay_rank{w.rank}")
-        loader = parallel.shard_eval_batches(ev["batches"], w)
-        out["eval/replay"] = evaluate(_replay(ev["outs"], w), {}, loader, save_dir=save,
-                                      with_scores=True, **kw)
-        out["eval/replay_files"] = sorted(os.listdir(save)) if os.path.isdir(save) else []
+        if "outs" in ev:
+            save = os.path.join(ev["work"], f"replay_rank{w.rank}")
+            loader = parallel.shard_eval_batches(ev["batches"], w)
+            out["eval/replay"] = evaluate(_replay(ev["outs"], w), {}, loader, save_dir=save,
+                                          with_scores=True, **kw)
+            out["eval/replay_files"] = sorted(os.listdir(save)) if os.path.isdir(save) else []
         model = build(ev["model"], w.device)
-        step = make_eval_step(model, device=w.device)
+        step = counted(make_eval_step(model, device=w.device))
         sd = model.state_dict()
-        out["eval/model"] = evaluate(step, sd, parallel.shard_eval_batches(ev["batches"], w),
-                                     **kw)
         packed = PackedScenes(ev["pack"])
-        out["eval/streamed_pack"] = evaluate(
-            step, sd, parallel.shard_eval_batches(PackedLoader(packed, ev["bs"]), w), **kw)
-        for g in (1, 2):
-            res = ResidentShardedEval(packed, w, ev["bs"], group=g)
-            out[f"eval/resident_group{g}"] = evaluate(step, sd, res, **kw)
+        loaders = {
+            "model": parallel.shard_eval_batches(ev["batches"], w),
+            "streamed_pack": parallel.shard_eval_batches(PackedLoader(packed, ev["bs"]), w),
+            **{f"resident_group{g}": ResidentShardedEval(packed, w, ev["bs"], group=g)
+               for g in (1, 2)}}
+        launches = {}
+        for name, loader in loaders.items():
+            # with ``save_ranks`` rank 0 writes each evaluation's rank lists
+            save = os.path.join(ev["work"], name) if ev.get("save_ranks") else None
+            before = (step.calls, *_launches())
+            out[f"eval/{name}"] = evaluate(step, sd, loader, save_dir=save, **kw)
+            launches[name] = [b - a for a, b in zip(before, (step.calls, *_launches()))]
         out["eval/agree"] = _agree(w, {k: v for k, v in out.items()
                                        if k.startswith("eval/") and k != "eval/replay_files"})
+        out["launches"] = _gather(w, launches)
     cli = inp.get("cli")
     if cli is not None:  # (train JSON, eval JSON)
         from vlsat_tpu_torch.main import main
