@@ -820,6 +820,59 @@ def test_server_pinned_path_equals_pageable_path(dev):
             np.testing.assert_allclose(got[key], cpu[key], rtol=1e-3, atol=1e-4)
 
 
+def test_server_reused_pinned_buffers_equal_a_fresh_server(dev):
+    """Batches served back to back through the pinned buffers of two
+    buckets, one of them right after a step that raised once its copies
+    were enqueued, give bit for bit the answers of a fresh server."""
+    from vlsat_tpu_torch.data.synthetic import make_scene
+    from vlsat_tpu_torch.models.mmgnet import MMGNetConfig, build_mmgnet
+    from vlsat_tpu_torch.serving import BatchedServer
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    cfg = MMGNetConfig(num_obj_classes=20, num_rel_classes=7, point_feature_size=64,
+                       dim_node=64, dim_edge=64, dim_atten=32, num_heads=4, clip_feat_dim=64,
+                       fused_pointnet=True)
+    model = build_mmgnet(cfg, device=dev, seed=5)
+    inner = make_eval_step(model, branch_3d_only=True, device=dev)
+    weights = model.state_dict()
+    fail = []
+
+    def step(_state, batch):  # raises after the real step enqueued its copies
+        out = inner(weights, batch)
+        if fail:
+            raise RuntimeError(fail.pop())
+        return out
+
+    step.device = inner.device
+    rng = np.random.RandomState(1)
+    batches = [[{k: v for k, v in make_scene(rng, n, num_points=16, num_rel_classes=7).items()
+                 if k in ("obj_points", "descriptor")} for n in sizes]
+               for sizes in ((24, 22, 19), (5, 8, 3, 6), (17, 20), (18,), (4, 7))]
+    kw = dict(max_batch=4, deadline_ms=200.0, num_rel_classes=7, feat_dim=64)
+    server = BatchedServer(eval_step=step, **kw)
+    assert server._pin
+    got = []
+    with server:
+        for k, scenes in enumerate(batches):
+            if k == 2:
+                fail.append("after the copies")
+            futs = [server.submit(s) for s in scenes]
+            if k == 2:
+                for f in futs:
+                    with pytest.raises(RuntimeError, match="after the copies"):
+                        f.result(timeout=120)
+                continue
+            got.append([f.result(timeout=120) for f in futs])
+    assert server.stats["failed"] == 1 and server.stats["batches"] == 4
+    assert server.stats["wire_buffers"] == 2 and server.stats["prepared_in_place"] == 3
+    for scenes, answers in zip(batches[:2] + batches[3:], got):
+        with BatchedServer(model, device=dev, **kw) as fresh:
+            want = [f.result(timeout=120) for f in [fresh.submit(s) for s in scenes]]
+        for g, w in zip(answers, want):
+            for key in ("obj_logits", "rel_cls", "edge_index"):
+                np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+
+
 def test_packed_eval_step_on_card_equals_dense(dev):
     """On the card the 3D-only step packs a host batch's edge rows (the
     valid edges and one row a scene with padding) and runs a batch already

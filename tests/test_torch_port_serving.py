@@ -161,6 +161,112 @@ def test_server_counts_packed_edge_rows():
         assert sum(a["edge_slots"] for a in steps) == slots, name
 
 
+def _wire_reference(scenes, bucket, max_batch, pad_to_max, feat_dim, num_rel):
+    """The server's batch as it was built before its buffers were reused:
+    ``pad_scene`` a scene, all-zero pad scenes, ``collate``, ``encode_wire``."""
+    from vlsat_tpu_torch.data.wire import encode_wire
+    from vlsat_tpu_torch.scene import collate, full_edge_index, pad_scene
+
+    padded = []
+    for s in scenes:
+        n = s["obj_points"].shape[0]
+        ei = np.asarray(s.get("edge_index", full_edge_index(n)), np.int32)
+        padded.append(pad_scene(
+            np.asarray(s["obj_points"], np.float32), np.asarray(s["descriptor"], np.float32),
+            np.asarray(s.get("obj_2d_feats", np.zeros((n, feat_dim), np.float32)), np.float32),
+            np.zeros((n,), np.int32), ei, np.zeros((len(ei), num_rel), np.float32),
+            n_max=bucket, feat_dim=feat_dim))
+    if pad_to_max:
+        while len(padded) < max_batch:
+            padded.append({k: np.zeros_like(v) for k, v in padded[0].items()})
+    return encode_wire(collate(padded))
+
+
+def _request(rng, n, kind, k):
+    """A scene of n objects as a client sends it: ``full`` the full graph,
+    ``partial`` its own shuffled subset of edges, ``feats`` with 2D features
+    on every other request (the dual forward's)."""
+    s = make_scene(rng, n, num_points=16, num_obj_classes=20, num_rel_classes=7)
+    # wide values, so that the f16 and bf16 roundings differ from f32
+    req = {"obj_points": s["obj_points"] * rng.uniform(0.5, 300.0),
+           "descriptor": s["descriptor"]}
+    if kind == "partial":
+        ei = s["edge_index"]
+        req["edge_index"] = ei[rng.permutation(len(ei))[:rng.randint(1, len(ei) + 1)]]
+    elif kind == "feats" and k % 2 == 0:
+        req["obj_2d_feats"] = rng.randn(n, 64).astype(np.float32) * 40.0
+    if k % 4 == 2:  # views with negative strides, which numpy assigns as any other
+        req = {key: np.flip(np.flip(v, 0).copy(), 0) for key, v in req.items()}
+    return req
+
+
+@pytest.mark.parametrize("kind", ["full", "partial", "feats"])
+@pytest.mark.parametrize("pad_to_max", [True, False], ids=["pad_to_max", "ragged"])
+@pytest.mark.parametrize("wire", ["float16", "bfloat16", "float32"])
+def test_in_place_batch_equals_the_padded_collated_wire_batch(monkeypatch, wire, pad_to_max,
+                                                              kind):
+    """The server writes each batch into its bucket's reused buffers; every
+    field equals (``torch.equal``, same dtype) ``encode_wire(collate(...))``
+    of the same scenes padded as before, through sizes growing and shrinking
+    in one bucket, slots turning from real to pad and back, and a bucket
+    change in between."""
+    from vlsat_tpu_torch.scene import SceneBatch
+    from vlsat_tpu_torch.utils import profiling
+
+    monkeypatch.setenv("VLSAT_WIRE_DTYPE", wire)
+
+    def step(state, batch):
+        raise AssertionError("not called")
+
+    step.device = torch.device("cpu")
+    server = BatchedServer(eval_step=step, max_batch=4, feat_dim=64, num_rel_classes=7,
+                           pad_to_max=pad_to_max)
+    rng = np.random.RandomState(7)
+    batches = [(17, 20), (24, 23, 18, 21), (13, 19), (5, 7, 3), (22, 17, 24), (24,),
+               (6, 8, 4, 7)]
+    for sizes in batches:
+        scenes = [_request(rng, n, kind, k) for k, n in enumerate(sizes)]
+        with profiling.span("serve.prepare") as sp:
+            got, _, counts, _ = server._prepare(scenes, sp)
+        bucket = pick_bucket(max(sizes))
+        assert got.num_nodes == bucket and counts == list(sizes)
+        want = _wire_reference(scenes, bucket, 4, pad_to_max, 64, 7)
+        for f in SceneBatch.__dataclass_fields__:
+            g, w = getattr(got, f), getattr(want, f)
+            if w is None:
+                assert g is None, f
+                continue
+            assert g.dtype == w.dtype and g.is_contiguous(), (f, sizes)
+            assert torch.equal(g, w), (f, sizes)
+    assert server.stats["wire_buffers"] == 2  # buckets 24 and 8
+    assert server.stats["prepared_in_place"] == len(batches) - 2
+
+
+@pytest.mark.parametrize("pad_to_max", [True, False], ids=["pad_to_max", "ragged"])
+def test_no_stale_row_reaches_an_answer(pad_to_max):
+    """A batch of large scenes in bucket 24, then one 17-object scene in the
+    same bucket: every scene gets the answer a fresh server gives it, bit
+    for bit, and the second batch reuses the first one's buffers."""
+    torch.manual_seed(0)
+    _, _, _, cfg, _ = _setup()
+    model = MMGNet(cfg)
+    rng = np.random.RandomState(3)
+    scenes = [_request(rng, n, "full", k) for k, n in enumerate((24, 22, 23, 21, 17))]
+    kw = dict(device="cpu", max_batch=4, deadline_ms=200.0, num_rel_classes=7,
+              pad_to_max=pad_to_max)
+    server = BatchedServer(model, **kw)
+    with server:
+        first = [f.result(timeout=120) for f in [server.submit(s) for s in scenes[:4]]]
+        last = server.predict(scenes[4], timeout=120)
+    assert server.stats["batches"] == 2
+    assert server.stats["prepared_in_place"] == 1 and server.stats["wire_buffers"] == 1
+    fresh = [_serve(BatchedServer(model, **kw), scenes[:4]), _serve(BatchedServer(model, **kw),
+                                                                     scenes[4:])]
+    for got, want in zip(first + [last], fresh[0] + fresh[1]):
+        for key in ("obj_logits", "rel_cls", "edge_index"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
 def test_bench_server_reports_rates():
     _, _, _, cfg, state = _setup()
     server = BatchedServer(MMGNet(cfg), state, device="cpu", max_batch=4,

@@ -26,10 +26,16 @@ def wire_dtype(default: str = "float16") -> str:
     return os.environ.get("VLSAT_WIRE_DTYPE", default)
 
 
+def wire_type(dtype: str | None = None) -> torch.dtype | None:
+    """The float type ``encode_wire`` narrows to under ``dtype`` (default
+    ``VLSAT_WIRE_DTYPE``); None for float32 (or an unknown name)."""
+    return _WIRE_TYPES.get(dtype or wire_dtype())
+
+
 def encode_wire(batch: SceneBatch, dtype: str | None = None) -> SceneBatch:
     """Narrow a host batch for transport; float32 (or an unknown name)
     returns it unchanged."""
-    wdt = _WIRE_TYPES.get(dtype or wire_dtype())
+    wdt = wire_type(dtype)
     if wdt is None:
         return batch
     kw = {}

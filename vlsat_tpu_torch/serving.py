@@ -4,12 +4,16 @@ transport.
 Counterpart of ``vlsat_tpu/serving.py`` (``BatchedServer`` :34-179,
 ``HTTPFrontend`` :182-291 and ``bench_server`` :294-331).  The server
 micro-batches incoming scenes up to ``max_batch`` within a ``deadline_ms``
-budget, pads them to a shared node bucket, narrows the batch to the wire
-format, copies it to the card from pinned host memory with ``non_blocking``
-(as ``eval.engine.evaluate`` does), runs one eval step and resolves each
-scene's future with its unpadded predictions.  By default it runs the 3D
-branch alone (the paper's deployment protocol); ``branch_3d_only=False``
-runs the dual forward, whose 3D outputs are the same.
+budget, writes their valid rows into the wire-format host batch of their
+node bucket (one set of buffers a bucket, reused from batch to batch and
+pinned on a card: ``_WireSet``), copies it to the card with
+``non_blocking`` (as ``eval.engine.evaluate`` does), runs one eval step and
+resolves each scene's future with its unpadded predictions.  The batch is
+byte for byte ``encode_wire(collate([pad_scene(...), ...]))`` of its scenes,
+padded (``pad_to_max``) to ``max_batch`` with all-zero scenes.  By default
+it runs the 3D branch alone (the paper's deployment protocol);
+``branch_3d_only=False`` runs the dual forward, whose 3D outputs are the
+same.
 
 One worker thread owns every device call; the HTTP request threads only
 enqueue scenes and wait on their futures.
@@ -18,7 +22,9 @@ Spans (``utils.profiling``, recorded while a profiler session is active):
 ``serve.queue`` a request (submit to being taken into a batch; its request
 and batch ids), ``serve.collect`` a batch (first request taken to batch
 closed) and ``serve.batch`` (batch id, scenes, bucket, valid edges, request
-ids) with its children ``serve.prepare`` (pad, collate, wire, pin),
+ids) with its children ``serve.prepare`` (the rows written into the
+bucket's buffers; ``reused``: into a set an earlier batch left, and
+``rows_cleared``: the node and edge rows of that batch restored to padding),
 ``serve.step`` (the step's launches enqueued; the edge rows it computed
 of the batch's slots, and the batch's valid instances of its instance
 slots), ``serve.fetch`` (the outputs'
@@ -38,13 +44,122 @@ from concurrent.futures import Future
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from vlsat_tpu_torch.data.wire import encode_wire
+from vlsat_tpu_torch.data.wire import wire_type
 from vlsat_tpu_torch.device import resolve_device
 from vlsat_tpu_torch.scene import (
-    DEFAULT_NODE_BUCKETS, collate, full_edge_index, pad_scene, pick_bucket)
+    _SAFE_DESCRIPTOR, DEFAULT_NODE_BUCKETS, SceneBatch, edge_count, full_edge_index,
+    pick_bucket)
 from vlsat_tpu_torch.train.step import make_eval_step, take_edge_rows, take_instances
 from vlsat_tpu_torch.utils import profiling
+
+
+def _as_rows(a: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
+    """``a`` as numpy's assignment into rows of ``shape`` reads it
+    (broadcast, or its ValueError), the way ``pad_scene`` assigns it; in C
+    order, since ``torch.from_numpy`` refuses negative strides."""
+    if a.shape == shape:
+        return np.ascontiguousarray(a)
+    out = np.empty(shape, np.float32)
+    out[...] = a
+    return out
+
+
+class _WireSet:
+    """One node bucket's host batch in wire format, reused from batch to
+    batch: (max_batch, bucket, ...) tensors in the dtypes that
+    ``encode_wire(collate(...))`` gives, pinned for a card.  ``key`` is what
+    the server observed of the batch that built it: (bucket, points,
+    channels, 2D width, relation classes, wire float type or None).
+
+    Each slot records the rows its last scene wrote, so ``put`` writes a
+    scene's valid rows and restores only the stale ones: a scene's padding
+    as ``pad_scene`` makes it (``_SAFE_DESCRIPTOR`` descriptors), or the
+    server's all-zero pad scene.  The labels stay zero."""
+
+    def __init__(self, key: Tuple, slots: int, pin: bool):
+        bucket, p, c, d2, r, wdt = key
+        e = edge_count(bucket)
+
+        def new(*shape, dtype):
+            return torch.zeros(shape, dtype=dtype, pin_memory=pin)
+
+        self.key = key
+        self.batch = SceneBatch(
+            obj_points=new(slots, bucket, p, c, dtype=wdt or torch.float32),
+            obj_mask=new(slots, bucket, dtype=torch.bool),
+            descriptor=new(slots, bucket, len(_SAFE_DESCRIPTOR), dtype=torch.float32),
+            obj_2d_feats=new(slots, bucket, d2, dtype=wdt or torch.float32),
+            gt_class=new(slots, bucket, dtype=torch.int32),
+            edge_index=new(slots, e, 2, dtype=torch.int32),
+            edge_mask=new(slots, e, dtype=torch.bool),
+            gt_rels=new(slots, e, r, dtype=torch.float32 if wdt is None else torch.uint8))
+        b = self.batch  # numpy views of the fields that keep their host dtype
+        self._mask, self._desc = b.obj_mask.numpy(), b.descriptor.numpy()
+        self._ei, self._em = b.edge_index.numpy(), b.edge_mask.numpy()
+        # per slot: the node, 2D-feature and edge rows its last scene wrote,
+        # and whether its padding descriptors are a scene's (safe) or zero
+        self._nodes, self._feats = [0] * slots, [0] * slots
+        self._edges, self._safe = [0] * slots, [False] * slots
+        self._fence = None  # a CUDA event after the last step that read the set
+
+    def put(self, k: int, scene: Optional[Tuple] = None) -> int:
+        """Slot k holds ``scene`` (points (n, P, C), descriptor, 2D features
+        (n, D2) or None, edge_index (e, 2); f32 and int32 numpy) or, with
+        None, the all-zero pad scene; returns the stale node and edge rows
+        it restored."""
+        n0, f0, e0, safe0 = self._nodes[k], self._feats[k], self._edges[k], self._safe[k]
+        if scene is None:
+            if not (n0 or e0 or f0 or safe0):
+                return 0
+            n = f = e = 0
+        else:
+            pts, desc, feats, ei = scene
+            n, e = len(pts), len(ei)
+            f = 0 if feats is None else n
+        b = self.batch
+        if n0 > n:
+            b.obj_points[k, n:n0].zero_()
+            self._mask[k, n:n0] = False
+        if f0 > f:
+            b.obj_2d_feats[k, f:f0].zero_()
+        if e0 > e:
+            self._ei[k, e:e0] = 0
+            self._em[k, e:e0] = False
+        safe = scene is not None
+        if safe != safe0:
+            self._desc[k, n:] = _SAFE_DESCRIPTOR if safe else 0
+        elif safe and n0 > n:
+            self._desc[k, n:n0] = _SAFE_DESCRIPTOR
+        self._nodes[k], self._feats[k], self._edges[k], self._safe[k] = n, f, e, safe
+        if scene is not None:  # the same rounding as encode_wire's cast
+            b.obj_points[k, :n].copy_(torch.from_numpy(pts))
+            self._mask[k, :n] = True
+            self._desc[k, :n] = desc
+            if feats is not None:
+                b.obj_2d_feats[k, :n].copy_(torch.from_numpy(feats))
+            self._ei[k, :e] = ei
+            self._em[k, :e] = True
+        return max(n0 - n, 0) + max(e0 - e, 0)
+
+    def view(self, scenes: int) -> SceneBatch:
+        """The first ``scenes`` slots (contiguous views)."""
+        if scenes == self.batch.num_scenes:
+            return self.batch
+        return SceneBatch(**{k: v[:scenes] for k, v in vars(self.batch).items()
+                             if v is not None})
+
+    def hold(self, device: torch.device) -> None:
+        """After a step enqueued its copies from the set."""
+        if device.type == "cuda":
+            self._fence = self._fence or torch.cuda.Event()
+            self._fence.record(torch.cuda.current_stream(device))
+
+    def wait(self) -> None:
+        """Before the set is written again: the last step's copies are done."""
+        if self._fence is not None:
+            self._fence.synchronize()
 
 
 class BatchedServer:
@@ -80,6 +195,7 @@ class BatchedServer:
             self._state = {k: v.to(dev) for k, v in state.items()}
         else:
             dev, self._eval, self._state = eval_step.device, eval_step, None
+        self._device = dev
         self._pin = dev.type == "cuda"
         self.branch_key = branch_key
         self.max_batch = max_batch
@@ -95,12 +211,17 @@ class BatchedServer:
         self._thread: Optional[threading.Thread] = None
         self._request_ids = itertools.count()
         self._batch_ids = itertools.count()
+        self._wire: Dict[int, _WireSet] = {}  # a bucket's buffers, kept for its next batch
+        self._full_edges: Dict[int, np.ndarray] = {}  # full_edge_index(n) by n
         # "failed": batches whose run raised (their clients get the error);
         # "edge_rows" of "edge_slots": the edge rows the steps computed, of
         # the padded batches' B * E (equal where a step runs dense);
-        # "instances" of "instance_slots": the valid instances of their B * N
+        # "instances" of "instance_slots": the valid instances of their B * N;
+        # "wire_buffers": buffer sets allocated, "prepared_in_place": batches
+        # written into a set that an earlier batch left
         self.stats = {"scenes": 0, "batches": 0, "batch_size_sum": 0, "failed": 0,
-                      "edge_rows": 0, "edge_slots": 0, "instances": 0, "instance_slots": 0}
+                      "edge_rows": 0, "edge_slots": 0, "instances": 0, "instance_slots": 0,
+                      "wire_buffers": 0, "prepared_in_place": 0}
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "BatchedServer":
@@ -171,40 +292,74 @@ class BatchedServer:
                     if not fut.done():
                         fut.set_exception(e)
 
+    def _prepare(self, scenes, span) -> Tuple[SceneBatch, _WireSet, List[int],
+                                               List[np.ndarray]]:
+        """The scenes' wire-format batch, written into their bucket's buffer
+        set; also the set, and each scene's node count and edge_index (the
+        client's answer)."""
+        counts = [s["obj_points"].shape[0] for s in scenes]
+        bucket = pick_bucket(max(counts), self.buckets)
+        rows, eis, shapes = [], [], set()
+        for s, n in zip(scenes, counts):
+            pts = np.asarray(s["obj_points"], np.float32)
+            p, c = pts.shape[1], pts.shape[2]
+            desc = np.asarray(s["descriptor"], np.float32)
+            feats, d2 = s.get("obj_2d_feats"), self.feat_dim
+            if feats is not None:
+                feats = np.asarray(feats, np.float32)
+                d2 = feats.shape[-1] if feats.size else d2
+                feats = _as_rows(feats, (n, d2))
+            if n > bucket:
+                raise ValueError(f"scene has {n} nodes > bucket {bucket}")
+            if "edge_index" in s:
+                ei = np.asarray(s["edge_index"], np.int32)
+                eis.append(ei)
+            else:  # the client gets its own copy of the shared array
+                ei = self._full_edges.get(n)
+                if ei is None:
+                    ei = self._full_edges[n] = full_edge_index(n)
+                eis.append(ei.copy())
+            if len(ei) > edge_count(bucket):
+                raise ValueError(f"scene has {len(ei)} edges > {edge_count(bucket)} "
+                                 f"at bucket {bucket}")
+            shapes.add((p, c, d2))
+            rows.append((_as_rows(pts, (n, p, c)), desc, feats, ei))
+        if len(shapes) > 1:
+            raise ValueError(f"the batch's scenes differ in (points, channels, 2D width): "
+                             f"{sorted(shapes)}")
+        key = (bucket, *shapes.pop(), self.num_rel_classes, wire_type())
+        ws = self._wire.get(bucket)
+        if ws is not None:
+            ws.wait()  # the copies of the batch that last used it
+        reused = ws is not None and ws.key == key
+        if not reused:
+            ws = self._wire[bucket] = _WireSet(key, self.max_batch, self._pin)
+            self.stats["wire_buffers"] += 1
+        try:
+            cleared = sum(ws.put(k, row) for k, row in enumerate(rows))
+            if self.pad_to_max:
+                cleared += sum(ws.put(k) for k in range(len(rows), self.max_batch))
+        except BaseException:
+            del self._wire[bucket]  # its slots' records no longer hold
+            raise
+        self.stats["prepared_in_place"] += int(reused)
+        span.set(reused=reused, rows_cleared=cleared)
+        return ws.view(self.max_batch if self.pad_to_max else len(rows)), ws, counts, eis
+
     def _run_batch(self, batch_id: int, items):
         scenes, futs, requests, _ = zip(*items)
         with profiling.span("serve.batch", batch=batch_id, scenes=len(items),
                             requests=requests) as sp:
-            with profiling.span("serve.prepare"):
-                counts = [s["obj_points"].shape[0] for s in scenes]
-                bucket = pick_bucket(max(counts), self.buckets)
-                padded, eis, edges = [], [], 0
-                for s in scenes:
-                    n = s["obj_points"].shape[0]
-                    ei = np.asarray(s.get("edge_index", full_edge_index(n)), np.int32)
-                    eis.append(ei)
-                    edges += len(ei)
-                    padded.append(pad_scene(
-                        np.asarray(s["obj_points"], np.float32),
-                        np.asarray(s["descriptor"], np.float32),
-                        np.asarray(s.get("obj_2d_feats",
-                                         np.zeros((n, self.feat_dim), np.float32)), np.float32),
-                        np.zeros((n,), np.int32),
-                        ei, np.zeros((len(ei), self.num_rel_classes), np.float32),
-                        n_max=bucket, feat_dim=self.feat_dim,
-                    ))
-                sp.set(bucket=bucket, edges=edges)
-                if self.pad_to_max:
-                    while len(padded) < self.max_batch:
-                        padded.append({k: np.zeros_like(v) for k, v in padded[0].items()})
-                batch = encode_wire(collate(padded))
-                if self._pin:  # the eval step's copy to the card is then asynchronous
-                    batch = batch.replace(**{k: v.pin_memory() for k, v in vars(batch).items()
-                                             if v is not None})
+            with profiling.span("serve.prepare") as pp:
+                batch, ws, counts, eis = self._prepare(scenes, pp)
+                sp.set(bucket=batch.num_nodes, edges=sum(len(ei) for ei in eis))
             with profiling.span("serve.step") as st:  # the host enqueues the step's launches
                 take_edge_rows()
                 take_instances()
-                out = self._eval(self._state, batch)
+                try:
+                    out = self._eval(self._state, batch)
+                finally:  # its copies from the set are enqueued
+                    ws.hold(self._device)
                 # None from an exported artifact, which runs dense
                 rows, slots = take_edge_rows() or (batch.edge_mask.numel(),) * 2
                 insts, inst_slots = take_instances() or (int(batch.obj_mask.sum()),
