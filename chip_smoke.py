@@ -8,7 +8,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. build the CUDA kernels of ``vlsat_tpu_torch/csrc`` with nvcc (sm_90a);
 2. hold each kernel against its plain PyTorch twin on the card at the
    serving path's shapes (node buckets 16, 48 and 64, 32 scenes; the fused
-   PointNet also in its point-chunked v2 configuration; the EdgeConv
+   PointNet also in its point-chunked v2 configuration, and as SGPN's
+   union-cloud encoder, 4 -> 64 -> 128 -> 256 over 256 points, at the
+   packed rows of a small and a full batch of served rooms; the EdgeConv
    kernel at the served SGGpoint room's buckets 8 and 64, P=128, k=20, in
    each of the DGCNN's four stages): segment-max and EdgeConv must be
    bit-equal, PointNet within rtol 1e-4 / atol 1e-5 (3xTF32 products on
@@ -136,6 +138,30 @@ def check_segment_max(dev, rng) -> list:
     return rows
 
 
+def pointnet_row(name: str, replaces: str, shape: str, got, want, fn, plain_ms: float,
+                 dims, m: int, p: int, inputs: int) -> dict:
+    """A PointNet row of the ``kernels`` line: the kernel timed against its
+    bound (its FLOPs as 3xTF32 products, or its bytes: ``inputs`` floats in,
+    (m, out) out) and its twin."""
+    flops = 2 * m * p * sum(a * b for a, b in zip(dims, dims[1:]))
+    nbytes = (inputs + m * dims[-1]) * 4
+    ms = cuda_ms(fn)
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
+    return {
+        "name": name, "route": "cuda", "source": "vlsat_tpu_torch/csrc/pointnet.cu",
+        "replaces": replaces, "shape": shape,
+        "max_abs_err": (got - want).abs().max().item(),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= 3 * flops / TF32_FLOPS
+                     else "operations"),
+        "bound_rate": "3xTF32: 3 TF32 products per fp32 product at 495 TFLOP/s",
+        "share_of_bound": bound_ms / ms,
+        "library_ms": None,
+    }
+
+
 def check_pointnet(dev, rng) -> list:
     from vlsat_tpu_torch.ops.kernels import pointnet_kernel as K
 
@@ -145,6 +171,7 @@ def check_pointnet(dev, rng) -> list:
     ws = [torch.from_numpy((rng.randn(b, a) / np.sqrt(a)).astype(np.float32)).to(dev).t()
           for a, b in zip(dims, dims[1:])]
     bs = [torch.from_numpy((rng.randn(b) * 0.1).astype(np.float32)).to(dev) for b in dims[1:]]
+    weights = sum(w.numel() for w in ws) + sum(b.numel() for b in bs)
     rows = []
     for n in BUCKETS:
         pts = torch.from_numpy((rng.randn(BATCH, n, 128, 3) * 0.5).astype(np.float32)).to(dev)
@@ -158,32 +185,49 @@ def check_pointnet(dev, rng) -> list:
             if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
                 fail(f"{name} differs from its twin at bucket {n}: max abs "
                      f"{(got - want).abs().max().item()}")
-            m = BATCH * n
-            flops = 2 * m * 128 * sum(a * b for a, b in zip(dims, dims[1:]))
-            nbytes = (pts.numel() + sum(w.numel() for w in ws) + sum(b.numel() for b in bs)
-                      + m * dims[-1]) * 4
-            ms = cuda_ms(fn)
-            bound_ms = max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
-            row = {
-                "name": name, "route": "cuda", "source": "vlsat_tpu_torch/csrc/pointnet.cu",
-                "replaces": ("vlsat_tpu/ops/pallas/pointnet_kernel.py:99"
-                             if name == "pointnet_fused"
-                             else "vlsat_tpu/ops/pallas/pointnet_kernel.py:150"),
-                "shape": f"B={BATCH} N={n} P=128 C=3 widths=64,128,768"
-                         + (" p_chunk=16" if name.endswith("v2") else ""),
-                "max_abs_err": (got - want).abs().max().item(),
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= 3 * flops / TF32_FLOPS
-                             else "operations"),
-                "bound_rate": "3xTF32: 3 TF32 products per fp32 product at 495 TFLOP/s",
-                "share_of_bound": bound_ms / ms,
-                "library_ms": None,
-            }
+            row = pointnet_row(
+                name, ("vlsat_tpu/ops/pallas/pointnet_kernel.py:99" if name == "pointnet_fused"
+                       else "vlsat_tpu/ops/pallas/pointnet_kernel.py:150"),
+                f"B={BATCH} N={n} P=128 C=3 widths=64,128,768"
+                + (" p_chunk=16" if name.endswith("v2") else ""),
+                got, want, fn, plain_ms, dims, BATCH * n, 128, pts.numel() + weights)
             log(f"{name} bucket {n}: within rtol 1e-4/atol 1e-5 of its twin; "
                 + json.dumps(row))
             rows.append(row)
+    return rows
+
+
+UNION_ROWS = (4096, 26112)  # packed edge rows: a few rooms, and 32 rooms of the mean 816 edges
+
+
+def check_union_pointnet(dev, rng) -> list:
+    """The fused PointNet as SGPN's relation encoder: 256-point union clouds
+    (xyz and a 0 / 1 / 2 mask channel), 4 -> 64 -> 128 -> 256."""
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel as K
+
+    dims, p = (4, 64, 128, 256), 256
+    ws = [torch.from_numpy((rng.randn(b, a) / np.sqrt(a)).astype(np.float32)).to(dev).t()
+          for a, b in zip(dims, dims[1:])]
+    bs = [torch.from_numpy((rng.randn(b) * 0.02).astype(np.float32)).to(dev) for b in dims[1:]]
+    weights = sum(w.numel() for w in ws) + sum(b.numel() for b in bs)
+    rows = []
+    for m in UNION_ROWS:
+        pts = np.concatenate([rng.randn(m, p, 3), rng.randint(0, 3, (m, p, 1))], axis=-1)
+        pts = torch.from_numpy(pts.astype(np.float32)).to(dev)
+        want = K.pointnet_encode_plain(pts, ws, bs)
+        fn = lambda: K.pointnet_encode_fused(pts, ws, bs)  # noqa: E731
+        got = fn()
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+            fail(f"pointnet_fused differs from its twin at {m} union rows: max abs "
+                 f"{(got - want).abs().max().item()}")
+        row = pointnet_row("pointnet_fused", "vlsat_tpu/ops/pallas/pointnet_kernel.py:99",
+                           f"R={m} P={p} C=4 widths=64,128,256 (SGPN union clouds)", got, want,
+                           fn, cuda_ms(lambda: K.pointnet_encode_plain(pts, ws, bs), iters=5),
+                           dims, m, p, pts.numel() + weights)
+        log(f"pointnet_fused {m} union rows: within rtol 1e-4/atol 1e-5 of its twin; "
+            + json.dumps(row))
+        rows.append(row)
     return rows
 
 
@@ -286,6 +330,7 @@ def main() -> None:
     # 2-3. kernels against their twins, and times
     rng = np.random.RandomState(SEED)
     kernels = check_segment_max(dev, rng) + check_pointnet(dev, rng) + check_edgeconv(dev, rng)
+    kernels += check_union_pointnet(dev, np.random.RandomState(SEED + 1))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

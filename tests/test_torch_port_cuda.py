@@ -1512,3 +1512,99 @@ def test_bench_tools_on_card(dev, tmp_path, monkeypatch):
     pointnet_kernel.launches = 0
     enc = bench_encoders.main(["--scenes", "8", "--nodes", "9"])
     assert enc["object_encoder"]["within_gate"] and pointnet_kernel.launches > 0
+
+
+# ------------------------------------------------------------------ SGPN
+
+def test_pointnet_kernel_union_encoder_shape_matches_twin(dev):
+    """SGPN's relation encoder, 4 -> 64 -> 128 -> 256 over 256-point union
+    clouds (xyz and a 0 / 1 / 2 mask channel), the unchunked kernel: each
+    row walks its 256 points as two tiles of 128."""
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel as K
+
+    rng = np.random.RandomState(24)
+    dims = (4, 64, 128, 256)
+    pts = np.concatenate([rng.randn(300, 256, 3) * 0.8, rng.randint(0, 3, (300, 256, 1))], -1)
+    pts = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    ws = [torch.from_numpy((rng.randn(b, a) / np.sqrt(a)).astype(np.float32)).to(dev).t()
+          for a, b in zip(dims, dims[1:])]
+    bs = [torch.from_numpy((rng.randn(b) * 0.02).astype(np.float32)).to(dev) for b in dims[1:]]
+    before = K.launches
+    got = K.pointnet_encode_fused(pts, ws, bs)
+    assert K.launches == before + 1 and got.shape == (300, 256)
+    torch.testing.assert_close(got, K.pointnet_encode_plain(pts, ws, bs), rtol=1e-4, atol=1e-5)
+
+
+def _sgpn_on(dev, seed=2400000017):
+    """The registry's SGPN with ``fused_pointnet`` loaded from the plain
+    reference's seeded weights, on the CPU and on ``dev``, and four rooms of
+    5-20 objects with their 256-point union clouds."""
+    from benchmark.harness import scenes, union
+    from benchmark.harness.weights import build_reference
+    from benchmark.reference import sgpn as R
+    from vlsat_tpu_torch.config import load_config
+    from vlsat_tpu_torch.interop import torch_import
+    from vlsat_tpu_torch.models.registry import build_model
+
+    ref = build_reference(R.SGPNReference, torch.device("cpu"), seed, num_obj=160, num_rel=26)
+    sds = torch_import.to_state_dict(torch_import.import_sgpn(R.module_state_dicts(ref)),
+                                     build_model("SGPN", 160, 26, load_config().MODEL)[0])
+    models = []
+    for device in ("cpu", dev):
+        model, _ = build_model("SGPN", 160, 26, load_config(
+            overrides={"MODEL": {"fused_pointnet": True}}).MODEL)
+        model.load_state_dict(sds)
+        models.append(model.to(device).eval())
+    specs = [s for s in scenes.label_specs("val_scans", 20) if len(s["gt_class"]) >= 5]
+    pool = scenes.make_scenes(specs[:4], 5, with_2d=False)
+    for s, clouds in zip(pool, union.make_unions(pool, 5)):
+        s["rel_points"] = clouds
+    return models, [{k: s[k] for k in ("obj_points", "descriptor", "rel_points")} for s in pool]
+
+
+def test_sgpn_server_on_card_equals_the_cpu_step(dev):
+    """SGPN served on the card (packed union rows, both encoders through the
+    kernel) against the CPU's 3D-only step over each scene alone, at the
+    model gate; the kernel launched once an encoder a batch."""
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel
+    from vlsat_tpu_torch.serving import BatchedServer
+    from vlsat_tpu_torch.train.step import make_eval_step
+
+    (cpu, card), requests = _sgpn_on(dev)
+    before = pointnet_kernel.launches
+    with BatchedServer(card, device=dev, max_batch=4, deadline_ms=500.0) as server:
+        got = [f.result(timeout=300) for f in [server.submit(r) for r in requests]]
+    assert pointnet_kernel.launches - before == 2 * server.stats["batches"]
+    assert server.stats["union_rows"] < server.stats["edge_slots"]
+    with BatchedServer(cpu, device="cpu", max_batch=1, deadline_ms=1.0) as alone:
+        want = [f.result(timeout=300) for f in [alone.submit(r) for r in requests]]
+    for g, w in zip(got, want):
+        for key in ("obj_logits", "rel_cls"):
+            np.testing.assert_allclose(g[key], w[key], rtol=1e-3, atol=1e-4, err_msg=key)
+
+
+def test_sgpn_forward_on_card_launches_the_kernel_once_an_encoder(dev):
+    """Eval mode: one launch for the object encoder and one for the union
+    encoder a forward, packed or dense; the packed step equals the dense
+    forward of the same batch on the card."""
+    from vlsat_tpu_torch.ops.kernels import pointnet_kernel
+    from vlsat_tpu_torch.scene import collate, full_edge_index, pad_scene
+    from vlsat_tpu_torch.train.step import make_eval_step, take_edge_rows
+
+    (_, card), requests = _sgpn_on(dev)
+    batch = collate([pad_scene(r["obj_points"], r["descriptor"],
+                               np.zeros((len(r["obj_points"]), 512), np.float32),
+                               np.zeros(len(r["obj_points"]), np.int32),
+                               full_edge_index(len(r["obj_points"])),
+                               np.zeros((len(r["rel_points"]), 26), np.float32), n_max=24,
+                               rel_points=r["rel_points"].astype(np.float32))
+                     for r in requests])
+    step = make_eval_step(card, branch_3d_only=True, device=dev)
+    outs = []
+    for b in (batch, batch.to(dev)):
+        before = pointnet_kernel.launches
+        outs.append(step(card.state_dict(), b))
+        assert pointnet_kernel.launches == before + 2
+    assert take_edge_rows()[0] == batch.edge_mask.numel()  # the batch on the card: dense
+    for key in ("obj_logits_3d", "rel_cls_3d"):
+        torch.testing.assert_close(outs[0][key], outs[1][key], rtol=1e-5, atol=1e-5, msg=key)

@@ -243,8 +243,7 @@ def test_eval_step_reports_instances_of_a_host_batch():
     assert take_instances() is None
 
 
-@pytest.mark.parametrize("name", ["MmgnetSingle", "SGFN", "SGPN", "MMteacher",
-                                  "SGGpointBaseline"])
+@pytest.mark.parametrize("name", ["MmgnetSingle", "SGFN", "MMteacher", "SGGpointBaseline"])
 def test_models_without_a_3d_only_mode_still_raise(name):
     model, _ = build_model(name, 160, 26, _mcfg())
     assert not has_3d_only_mode(model)

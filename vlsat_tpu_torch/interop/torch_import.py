@@ -269,6 +269,21 @@ def import_sgfn(module_state_dicts: Mapping[str, Mapping[str, np.ndarray]],
     return {"params": params, "batch_stats": {}}
 
 
+def import_sgpn(module_state_dicts: Mapping[str, Mapping[str, np.ndarray]]
+                ) -> Dict[str, Any]:
+    """Assemble the flax-shaped variables of ``SGPN`` from the original's
+    per-child checkpoints (VL-SAT's src/model/SGFN_MMG/baseline_sgpn.py,
+    ``WITH_BN`` false): ``obj_encoder`` and ``rel_encoder`` (PointNetfeat:
+    Conv1d ``conv1``-``conv3``, weights (out, in, 1)), ``obj_predictor``
+    (PointNetCls) and ``rel_predictor`` (PointNetRelClsMulti), each
+    ``fc1``-``fc3``."""
+    sds = module_state_dicts
+    params = {name: import_pointnet(sds[name]) for name in ("obj_encoder", "rel_encoder")}
+    params.update({name: import_rel_predictor(sds[name])
+                   for name in ("obj_predictor", "rel_predictor")})
+    return {"params": params, "batch_stats": {}}
+
+
 def _conv(sd, prefix, bias: bool = True) -> Dict[str, np.ndarray]:
     """A 1x1 Conv1d/Conv2d (out, in, 1[, 1]) -> a Dense kernel (in, out)."""
     w = np.asarray(sd[f"{prefix}.weight"], np.float32)

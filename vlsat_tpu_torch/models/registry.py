@@ -2,11 +2,13 @@
 ``vlsat_tpu/models/registry.py``).
 
 Every entry of the JAX registry is built, with the same config fields,
-loss partials and in21k widths.  ``fused_pointnet`` stays off in every
-entry, as in JAX.  Every LayerNorm takes the original's epsilon, torch's
-1e-5 (``models.transformer.TORCH_LN_EPS``), where the JAX package has
-flax's 1e-6: the registry builds the model that the original's
-checkpoints (``interop.torch_import``) load into.
+loss partials and in21k widths.  The MODEL key ``fused_pointnet`` (false
+unless a config sets it; the JAX registry has none) turns on the fused
+PointNet kernel route of the entries that have one: ``MMGNetConfig``'s
+object encoder and SGPN's two encoders.  Every LayerNorm takes the
+original's epsilon, torch's 1e-5 (``models.transformer.TORCH_LN_EPS``),
+where the JAX package has flax's 1e-6: the registry builds the model that
+the original's checkpoints (``interop.torch_import``) load into.
 """
 
 from __future__ import annotations
@@ -47,29 +49,32 @@ def model_config(name: str, num_obj: int, num_rel: int, mcfg):
         raise ValueError(f"unknown nn_edge_mode {mode!r}")
     channels = (3 + 3 * bool(mcfg.get("USE_RGB", False))
                 + 3 * bool(mcfg.get("USE_NORMAL", False)))
+    fused = bool(mcfg.get("fused_pointnet", False))
     gnn = dict(dim_atten=mcfg.DIM_ATTEN, num_heads=mcfg.NUM_HEADS, depth=mcfg.N_LAYERS,
                gcn_aggr=mcfg.GCN_AGGR, dropout_atten=mcfg.DROP_OUT_ATTEN,
                use_gcn_edge=mcfg.USE_GCN_EDGE, use_spatial=mcfg.USE_SPATIAL,
                ln_eps=TORCH_LN_EPS)
+    mmg = dict(gnn, fused_pointnet=fused)
     common = dict(num_obj_classes=num_obj, num_rel_classes=num_rel,
                   multi_rel_outputs=mcfg.multi_rel_outputs, point_channels=channels)
     if name in ("Mmgnet", "MmgnetSingle"):
-        return MMGNetConfig(**common, **gnn, point_feature_size=mcfg.point_feature_size,
+        return MMGNetConfig(**common, **mmg, point_feature_size=mcfg.point_feature_size,
                             clip_feat_dim=mcfg.clip_feat_dim,
                             adapter_alpha=mcfg.adapter_alpha)
     if name == "MMteacher":
-        return MMGNetConfig(**common, **gnn)
+        return MMGNetConfig(**common, **mmg)
     if name == "MmgnetIn21k":
         # 768-d ImageNet-21k features, no adapter, plain classifiers
         # (reference model_in21k.py:45,76,144-156,295-296)
-        return MMGNetConfig(**common, **gnn, point_feature_size=760, dim_node=768,
+        return MMGNetConfig(**common, **mmg, point_feature_size=760, dim_node=768,
                             dim_edge=768, clip_feat_dim=768, cosine_classifier=False,
                             use_adapter=False, use_mlp_3d=False)
     if name == "SGFN":
         gnn["edge_feature_size"] = mcfg.get("edge_feature_size", 256)
         return SGFNConfig(**common, **gnn)
     if name == "SGPN":
-        return SGPNConfig(**common, edge_feature_size=mcfg.get("edge_feature_size", 256))
+        return SGPNConfig(**common, edge_feature_size=mcfg.get("edge_feature_size", 256),
+                          fused_pointnet=fused)
     if name == "SGGpoint":
         if mcfg.clip_feat_dim != SGGpointConfig.dim:
             # JAX takes the width from the batch and fails in the attention

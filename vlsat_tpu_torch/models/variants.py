@@ -10,7 +10,8 @@
     ``GraphEdgeAttenNetwork``; log-softmax object head.
   * ``SGPN``: no graph network; the relation encoder reads the per-edge
     union point clouds ``batch.rel_points`` (point channels + 1 mask
-    channel), which the dataset emits with ``with_union_points``.
+    channel), which the dataset emits with ``with_union_points`` and a
+    client of ``serving.BatchedServer`` sends with each scene.
 
 Each reports its one branch under both the "3d" and the "2d" keys, as in
 JAX.  Module names follow the flax tree, so ``interop.from_flax`` bridges
@@ -36,9 +37,10 @@ from vlsat_tpu_torch.models.transformer import (FLAX_LN_EPS, DistanceBiasMLP,
                                                MultiHeadAttention, set_layer_norm_eps)
 from vlsat_tpu_torch.ops.attention import pairwise_distance_bias
 from vlsat_tpu_torch.ops.descriptor import edge_descriptor
-from vlsat_tpu_torch.ops.graph import gather_edge_endpoints
+from vlsat_tpu_torch.ops.graph import EdgeRows, gather_edge_endpoints, unpack_edges
 from vlsat_tpu_torch.ops.norm import safe_normalize
 from vlsat_tpu_torch.scene import SceneBatch
+from vlsat_tpu_torch.utils import profiling
 
 
 def _both_branches(obj_logits, rel_cls) -> Dict[str, torch.Tensor]:
@@ -194,7 +196,8 @@ class SGFN(nn.Module):
 @dataclasses.dataclass(frozen=True)
 class SGPNConfig:
     """``vlsat_tpu.models.variants.SGPNConfig`` plus ``point_channels`` (the
-    union clouds carry one more, the membership mask)."""
+    union clouds carry one more, the membership mask) and ``fused_pointnet``
+    (both encoders through the fused PointNet kernel in eval mode)."""
 
     num_obj_classes: int = 160
     num_rel_classes: int = 26
@@ -202,26 +205,50 @@ class SGPNConfig:
     edge_feature_size: int = 256
     multi_rel_outputs: bool = True
     point_channels: int = 3
+    fused_pointnet: bool = False
 
 
 class SGPN(nn.Module):
     """Union-point-cloud baseline (variants.py:202-223): reads
     ``batch.rel_points`` (B, E, P, point_channels + 1) and raises
-    ``ValueError`` without them."""
+    ``ValueError`` without them.  Its one branch is its 3D branch, so
+    ``branch_3d_only`` (the serving mode) changes nothing.  In eval mode
+    ``edge_rows`` (``ops.graph.EdgeRows``) makes ``rel_points`` the packed
+    rows (R, P, point_channels + 1) it names: the relation encoder and head
+    run on them alone and ``rel_cls_*`` is the same dense (B, E, R) tensor.
+    The relation encoder runs inside the span ``model.union``
+    (``utils.profiling``; rows encoded, points a row, and ``fused``: the
+    fused PointNet route taken)."""
+
+    needs_rel_points = True  # a server must ship each scene's union clouds
 
     def __init__(self, cfg: SGPNConfig = SGPNConfig()):
         super().__init__()
         self.cfg = cfg
-        self.obj_encoder = PointNetEncoder(cfg.point_channels, cfg.point_feature_size)
-        self.rel_encoder = PointNetEncoder(cfg.point_channels + 1, cfg.edge_feature_size)
+        self.obj_encoder = PointNetEncoder(cfg.point_channels, cfg.point_feature_size,
+                                           fused=cfg.fused_pointnet)
+        self.rel_encoder = PointNetEncoder(cfg.point_channels + 1, cfg.edge_feature_size,
+                                           fused=cfg.fused_pointnet)
         self.obj_predictor = ObjClsHead(cfg.point_feature_size, cfg.num_obj_classes)
         self.rel_predictor = RelPredictor(cfg.edge_feature_size, cfg.num_rel_classes,
                                           multi_label=cfg.multi_rel_outputs)
 
-    def forward(self, batch: SceneBatch, istrain: bool = False,
-                rng: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        if batch.rel_points is None:
-            raise ValueError("SGPN needs batch.rel_points: enable dataset.with_union_points")
+    def forward(self, batch: SceneBatch, istrain: bool = False, branch_3d_only: bool = False,
+                rng: Optional[torch.Generator] = None,
+                edge_rows: Optional[EdgeRows] = None) -> Dict[str, torch.Tensor]:
+        pts = batch.rel_points
+        if pts is None:
+            raise ValueError("SGPN needs batch.rel_points: enable dataset.with_union_points, or "
+                             "serve it through its eval step (or a wrapper that keeps the "
+                             "step's union_rows), whose server ships each request's clouds")
+        if (edge_rows is not None and self.training) or (edge_rows is None) != (pts.dim() == 4):
+            raise ValueError("rel_points are dense (B, E, P, C), or in eval mode packed "
+                             f"(R, P, C) with their edge_rows; got {tuple(pts.shape)}")
         f = self.obj_encoder(batch.obj_points)
-        e = self.rel_encoder(batch.rel_points)
-        return _both_branches(self.obj_predictor(f, rng), self.rel_predictor(e, rng))
+        with profiling.span("model.union", rows=math.prod(pts.shape[:-2]), points=pts.shape[-2],
+                            fused=self.rel_encoder.fused and not self.training):
+            e = self.rel_encoder(pts)
+        rel_cls = self.rel_predictor(e, rng)
+        if edge_rows is not None:
+            rel_cls = unpack_edges(rel_cls, edge_rows.src, batch.num_scenes)
+        return _both_branches(self.obj_predictor(f, rng), rel_cls)

@@ -51,6 +51,23 @@ class EdgeRows:
     src: torch.Tensor
 
 
+def _kept_rows(edge_mask: np.ndarray, edge_index: np.ndarray):
+    """(shared (B, E): the padded rows whose ``edge_index`` is (0, 0), each
+    scene's first of them (B,), the kept flat slots (R,))."""
+    scenes = np.arange(edge_mask.shape[0])
+    shared = ~edge_mask & (edge_index.view(np.int64)[..., 0] == 0)
+    first = shared.argmax(axis=1)
+    keep = ~shared
+    keep[scenes, first] |= shared[scenes, first]
+    return shared, first, np.flatnonzero(keep)
+
+
+def edge_row_slots(edge_mask: np.ndarray, edge_index: np.ndarray) -> np.ndarray:
+    """The flat slots ``b * E + e`` of the R rows that ``select_edge_rows``
+    keeps, in its order (ascending)."""
+    return _kept_rows(edge_mask, np.ascontiguousarray(edge_index, dtype=np.int32))[2]
+
+
 def select_edge_rows(edge_mask: np.ndarray, edge_index: np.ndarray, num_nodes: int
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """``EdgeRows``' ``ends`` (R, 2) and ``src`` (B * E,), int32 numpy, of
@@ -61,18 +78,13 @@ def select_edge_rows(edge_mask: np.ndarray, edge_index: np.ndarray, num_nodes: i
     is computed and ``src`` sends the others to it; an invalid row with
     other endpoints is computed on its own."""
     b, e = edge_mask.shape
-    scenes = np.arange(b)
     edge_index = np.ascontiguousarray(edge_index, dtype=np.int32)
-    shared = ~edge_mask & (edge_index.view(np.int64)[..., 0] == 0)
-    first = shared.argmax(axis=1)
-    keep = ~shared
-    keep[scenes, first] |= shared[scenes, first]
-    rows = np.flatnonzero(keep)
+    shared, first, rows = _kept_rows(edge_mask, edge_index)
     ends = edge_index.reshape(-1, 2)[rows] + (rows // e * num_nodes).astype(np.int32)[:, None]
     src = np.empty((b, e), np.int32)
     flat = src.reshape(-1)
     flat[rows] = np.arange(len(rows))
-    np.copyto(src, flat[scenes * e + first][:, None], where=shared)
+    np.copyto(src, flat[np.arange(b) * e + first][:, None], where=shared)
     return ends, flat
 
 

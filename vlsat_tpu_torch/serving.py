@@ -15,6 +15,16 @@ it runs the 3D branch alone (the paper's deployment protocol);
 ``branch_3d_only=False`` runs the dual forward, whose 3D outputs are the
 same.
 
+A model that reads each edge's union point cloud, served 3D only
+(``SGPN``: its step's ``union_rows``), takes them with each request
+(``rel_points``, a row an edge).  The server writes the batch's valid rows
+of them, and one zero row for each scene with padded edges, packed in
+``ops.graph.select_edge_rows``' order, into one wire-format block of the
+bucket's buffer set, and ships only those R rows: never the dense
+(B, E, P, C) block.  Any other server reads no ``rel_points``.  A wrapper
+of such a step handed to the server as ``eval_step`` keeps the step's
+``device`` and ``union_rows``.
+
 One worker thread owns every device call; the HTTP request threads only
 enqueue scenes and wait on their futures.
 
@@ -24,7 +34,9 @@ and batch ids), ``serve.collect`` a batch (first request taken to batch
 closed) and ``serve.batch`` (batch id, scenes, bucket, valid edges, request
 ids) with its children ``serve.prepare`` (the rows written into the
 bucket's buffers; ``reused``: into a set an earlier batch left, and
-``rows_cleared``: the node and edge rows of that batch restored to padding),
+``rows_cleared``: the node and edge rows of that batch restored to padding;
+on a server of union clouds ``union_rows`` and ``union_bytes``, the packed
+rows shipped and their bytes),
 ``serve.step`` (the step's launches enqueued; the edge rows it computed
 of the batch's slots, and the batch's valid instances of its instance
 slots), ``serve.fetch`` (the outputs'
@@ -66,6 +78,25 @@ def _as_rows(a: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
     return out
 
 
+def _rel_points_error(scene: Mapping) -> Optional[str]:
+    """Why ``scene`` cannot be served by a model of union clouds, or None:
+    its ``rel_points`` must be (e, Pu, C + 1), a row for each of its e
+    edges."""
+    if "obj_points" not in scene:
+        return None  # the batch's prepare reports it
+    pts = np.shape(scene["obj_points"])
+    n, c = pts[0], pts[-1]
+    e = len(scene["edge_index"]) if "edge_index" in scene else n * (n - 1)
+    if "rel_points" not in scene:
+        return (f"this server's model reads each edge's union point cloud: the request "
+                f"needs rel_points ({e}, Pu, {c + 1})")
+    got = np.shape(scene["rel_points"])
+    if len(got) != 3 or got[0] != e or got[1] < 1 or got[2] != c + 1:
+        return (f"rel_points {got} must be ({e}, Pu, {c + 1}): a row for each of the "
+                f"scene's {e} edges, Pu points of its {c} channels and the mask")
+    return None
+
+
 class _WireSet:
     """One node bucket's host batch in wire format, reused from batch to
     batch: (max_batch, bucket, ...) tensors in the dtypes that
@@ -86,6 +117,8 @@ class _WireSet:
             return torch.zeros(shape, dtype=dtype, pin_memory=pin)
 
         self.key = key
+        self._wdt, self._pin = wdt or torch.float32, pin
+        self.union: Optional[torch.Tensor] = None  # packed union clouds, grown to the largest R
         self.batch = SceneBatch(
             obj_points=new(slots, bucket, p, c, dtype=wdt or torch.float32),
             obj_mask=new(slots, bucket, dtype=torch.bool),
@@ -143,6 +176,29 @@ class _WireSet:
             self._em[k, :e] = True
         return max(n0 - n, 0) + max(e0 - e, 0)
 
+    def put_union(self, clouds: List[np.ndarray], scenes: int) -> torch.Tensor:
+        """The union clouds of the first ``scenes`` slots as packed rows, in
+        ``select_edge_rows``' order over the slots that ``put`` wrote: each
+        scene's rows (``clouds[k]``, (e_k, P, C), any float dtype, cast as
+        ``encode_wire`` casts), then one zero row where the scene has padded
+        edges; slots past ``clouds`` hold the pad scene.  Written into
+        ``union``, which grows to the largest R seen."""
+        e_max = self.batch.num_edges
+        counts = [len(c) for c in clouds] + [0] * (scenes - len(clouds))
+        r = sum(counts) + sum(e < e_max for e in counts)
+        shape = clouds[0].shape[1:]
+        if self.union is None or len(self.union) < r or self.union.shape[1:] != shape:
+            self.union = torch.empty((r, *shape), dtype=self._wdt, pin_memory=self._pin)
+        at = 0
+        for k, e in enumerate(counts):
+            if e:
+                self.union[at:at + e].copy_(torch.from_numpy(clouds[k]))
+                at += e
+            if e < e_max:
+                self.union[at].zero_()
+                at += 1
+        return self.union[:r]
+
     def view(self, scenes: int) -> SceneBatch:
         """The first ``scenes`` slots (contiguous views)."""
         if scenes == self.batch.num_scenes:
@@ -197,6 +253,7 @@ class BatchedServer:
             dev, self._eval, self._state = eval_step.device, eval_step, None
         self._device = dev
         self._pin = dev.type == "cuda"
+        self._union = bool(getattr(self._eval, "union_rows", False))
         self.branch_key = branch_key
         self.max_batch = max_batch
         self.deadline_s = deadline_ms / 1e3
@@ -218,10 +275,12 @@ class BatchedServer:
         # the padded batches' B * E (equal where a step runs dense);
         # "instances" of "instance_slots": the valid instances of their B * N;
         # "wire_buffers": buffer sets allocated, "prepared_in_place": batches
-        # written into a set that an earlier batch left
+        # written into a set that an earlier batch left; "union_rows" /
+        # "union_bytes": packed union-cloud rows shipped, and their bytes
         self.stats = {"scenes": 0, "batches": 0, "batch_size_sum": 0, "failed": 0,
                       "edge_rows": 0, "edge_slots": 0, "instances": 0, "instance_slots": 0,
-                      "wire_buffers": 0, "prepared_in_place": 0}
+                      "wire_buffers": 0, "prepared_in_place": 0, "union_rows": 0,
+                      "union_bytes": 0}
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "BatchedServer":
@@ -244,8 +303,15 @@ class BatchedServer:
     def submit(self, scene: Dict[str, np.ndarray]) -> Future:
         """scene: {"obj_points" (n, P, C) zero-meaned, "descriptor" (n, 11),
         optional "obj_2d_feats" (n, D2), optional "edge_index" (e, 2),
-        by default the full directed graph}."""
+        by default the full directed graph}; for a model that reads union
+        clouds also "rel_points" (e, Pu, C + 1), row k the k-th edge's (a
+        request without them, or with another row count, gets its error in
+        its future at once and joins no batch)."""
         fut: Future = Future()
+        error = _rel_points_error(scene) if self._union else None
+        if error is not None:
+            fut.set_exception(ValueError(error))
+            return fut
         self._q.put((scene, fut, next(self._request_ids), profiling.stamp()))
         return fut
 
@@ -300,6 +366,11 @@ class BatchedServer:
         counts = [s["obj_points"].shape[0] for s in scenes]
         bucket = pick_bucket(max(counts), self.buckets)
         rows, eis, shapes = [], [], set()
+        clouds = ([np.ascontiguousarray(s["rel_points"]) for s in scenes] if self._union
+                  else None)
+        if clouds and len({c.shape[1:] for c in clouds}) > 1:
+            raise ValueError(f"the batch's scenes differ in union cloud shape: "
+                             f"{sorted({c.shape[1:] for c in clouds})}")
         for s, n in zip(scenes, counts):
             pts = np.asarray(s["obj_points"], np.float32)
             p, c = pts.shape[1], pts.shape[2]
@@ -335,16 +406,25 @@ class BatchedServer:
         if not reused:
             ws = self._wire[bucket] = _WireSet(key, self.max_batch, self._pin)
             self.stats["wire_buffers"] += 1
+        slots = self.max_batch if self.pad_to_max else len(rows)
         try:
             cleared = sum(ws.put(k, row) for k, row in enumerate(rows))
             if self.pad_to_max:
                 cleared += sum(ws.put(k) for k in range(len(rows), self.max_batch))
+            union = ws.put_union(clouds, slots) if clouds else None
         except BaseException:
             del self._wire[bucket]  # its slots' records no longer hold
             raise
         self.stats["prepared_in_place"] += int(reused)
         span.set(reused=reused, rows_cleared=cleared)
-        return ws.view(self.max_batch if self.pad_to_max else len(rows)), ws, counts, eis
+        batch = ws.view(slots)
+        if union is not None:
+            nbytes = union.numel() * union.element_size()
+            self.stats["union_rows"] += len(union)
+            self.stats["union_bytes"] += nbytes
+            span.set(union_rows=len(union), union_bytes=nbytes)
+            batch = batch.replace(rel_points=union)
+        return batch, ws, counts, eis
 
     def _run_batch(self, batch_id: int, items):
         scenes, futs, requests, _ = zip(*items)

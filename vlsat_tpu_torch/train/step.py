@@ -38,8 +38,7 @@ from torch import nn
 from vlsat_tpu_torch.data.resident import gather_rows
 from vlsat_tpu_torch.data.wire import decode_wire
 from vlsat_tpu_torch.device import resolve_device
-from vlsat_tpu_torch.models.mmgnet import MMGNet
-from vlsat_tpu_torch.ops.graph import EdgeRows, select_edge_rows
+from vlsat_tpu_torch.ops.graph import EdgeRows, edge_row_slots, select_edge_rows
 from vlsat_tpu_torch.parallel import mesh
 from vlsat_tpu_torch.scene import SceneBatch
 from vlsat_tpu_torch.train.losses import vlsat_total_loss
@@ -259,8 +258,14 @@ def take_instances() -> Optional[Tuple[int, int]]:
 
 def has_3d_only_mode(model: nn.Module) -> bool:
     """Whether ``model``'s forward takes ``branch_3d_only`` (``MMGNet``,
-    ``SGGpoint``)."""
+    ``SGGpoint``, and ``SGPN``, whose one branch is its 3D branch)."""
     return "branch_3d_only" in inspect.signature(model.forward).parameters
+
+
+def packs_edge_rows(model: nn.Module) -> bool:
+    """Whether ``model``'s 3D-only eval forward can run its per-edge layers on
+    packed rows: its forward takes ``edge_rows`` (``MMGNet``, ``SGPN``)."""
+    return "edge_rows" in inspect.signature(model.forward).parameters
 
 
 def make_eval_step(model: nn.Module, branch_3d_only: bool = False, device=None
@@ -273,22 +278,28 @@ def make_eval_step(model: nn.Module, branch_3d_only: bool = False, device=None
     ``state_dict`` keys, on ``device``; a trained state's
     ``state.model.state_dict()``, which shares the model's storage).  The dual-branch forward by default,
     as in JAX; ``branch_3d_only=True`` is the serving mode of the models
-    that have one (``MMGNet``, ``SGGpoint``: ``has_3d_only_mode``) and
-    raises for any other model (JAX has it for ``MMGNet`` alone,
+    that have one (``MMGNet``, ``SGGpoint``, ``SGPN``: ``has_3d_only_mode``)
+    and raises for any other model (JAX has it for ``MMGNet`` alone,
     step.py:203-211).  Every model of the registry runs through it.
 
-    An ``MMGNet`` 3D-only step given a batch on the host (the server's, a
-    streaming loader's on the CPU) builds the batch's ``ops.graph.EdgeRows``
-    from the host's ``edge_mask`` and ships them with it, and the forward
-    runs its per-edge layers on those rows alone; a batch already on the
-    device (a resident loader's on the card), ``SGGpoint`` and the dual
-    forward run dense.  Each call reports its rows and slots
+    A 3D-only step of a model whose forward takes ``edge_rows``
+    (``packs_edge_rows``: ``MMGNet``, ``SGPN``) given a batch on the host
+    (the server's, a streaming loader's on the CPU) builds the batch's
+    ``ops.graph.EdgeRows`` from the host's ``edge_mask`` and ships them with
+    it, and the forward runs its per-edge layers on those rows alone.  Such
+    a batch's ``rel_points`` may be dense (B, E, P, C), whose rows the step
+    then picks, or already packed (R, P, C) in the rows' order (the
+    server's: ``serving.BatchedServer`` ships only those).  A batch already
+    on the device (a resident loader's on the card), ``SGGpoint`` and the
+    dual forward run dense.  Each call reports its rows and slots
     (``take_edge_rows``) and, for a host batch, its valid instances and
-    instance slots (``take_instances``)."""
+    instance slots (``take_instances``).  ``eval_step.union_rows`` says
+    whether the step takes a host batch's union clouds as packed rows
+    (SGPN's 3D-only step): a server then ships only those."""
     if branch_3d_only and not has_3d_only_mode(model):
-        raise ValueError(f"branch_3d_only is an MMGNet serving mode (SGGpoint has one "
-                         f"too), got {type(model).__name__}")
-    packs = branch_3d_only and isinstance(model, MMGNet)
+        raise ValueError(f"branch_3d_only is an MMGNet serving mode (SGGpoint and SGPN have "
+                         f"one too), got {type(model).__name__}")
+    packs = branch_3d_only and packs_edge_rows(model)
     kwargs = {"branch_3d_only": True} if branch_3d_only else {}
     dev = resolve_device(device)
     _fp32()
@@ -305,9 +316,18 @@ def make_eval_step(model: nn.Module, branch_3d_only: bool = False, device=None
                                  if on_host else None)
         with torch.inference_mode():
             if packs and on_host:
-                packed = [torch.from_numpy(a) for a in select_edge_rows(
-                    batch.edge_mask.numpy(), batch.edge_index.numpy(), batch.num_nodes)]
-                _edge_report.last = (len(packed[0]), slots)
+                mask, index = batch.edge_mask.numpy(), batch.edge_index.numpy()
+                packed = [torch.from_numpy(a) for a in select_edge_rows(mask, index,
+                                                                        batch.num_nodes)]
+                rows = len(packed[0])
+                _edge_report.last = (rows, slots)
+                rel = batch.rel_points
+                if rel is not None and rel.dim() == 4:  # dense: pick the rows
+                    batch = batch.replace(rel_points=rel.flatten(0, 1)[
+                        torch.from_numpy(edge_row_slots(mask, index))])
+                elif rel is not None and len(rel) != rows:
+                    raise ValueError(f"packed rel_points hold {len(rel)} rows, the batch's "
+                                     f"edge rows are {rows}")
                 if dev.type == "cuda":  # copied with the batch, asynchronously
                     packed = [t.pin_memory() for t in packed]
                 kw = dict(kwargs, edge_rows=EdgeRows(
@@ -316,4 +336,5 @@ def make_eval_step(model: nn.Module, branch_3d_only: bool = False, device=None
             return torch.func.functional_call(model, dict(state), (batch,), kw, strict=True)
 
     eval_step.device = dev  # where eval.engine.evaluate sends the batches
+    eval_step.union_rows = packs and bool(getattr(model, "needs_rel_points", False))
     return eval_step
